@@ -14,6 +14,17 @@ attested: the repo's converge benchmark graph) through
 the same card, the ``entry()`` twin against its CPU run, and the
 ``sparse-scores`` CLI on a 100K-peer edge list.
 
+The second path is batched attestation ingest on the field kernels
+(``csrc/field.cu``: the Montgomery multiply that replaces the TPU's
+``_mont_mul_kernel``, and the modular add and subtract). The script
+holds each against its plain PyTorch version bit for bit (four moduli,
+n from 1 to 262,144, edge and lazy values, and Python ints on sampled
+lanes), times them beside their bounds, runs ``field_converge`` at
+N = 512 against a host Python-int converge, and ingests 262,144 signed
+attestations (1,024 distinct ones by 64 signers, tiled, with forged
+lanes at known indices) through ``recover_signers_batch``: every honest
+lane must recover its signer, every forged one must not.
+
 Every phase prints one JSON line; any failed check exits non-zero. The
 last lines are the ``kernels`` record, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. With no CUDA device, or outside
@@ -25,6 +36,7 @@ from __future__ import annotations
 
 import json
 import os
+import random
 import subprocess
 import sys
 import tempfile
@@ -41,6 +53,18 @@ ALPHA = 0.1
 TOL = 1e-6
 MAX_ITERATIONS = 100
 CLI_PEERS = 100_000
+
+# 32-bit integer multiply-adds per clock per SM on compute capability 9.0
+# (CUDA C++ Programming Guide, arithmetic instruction throughput table)
+INT_MULADD_PER_CLK_PER_SM = 64
+FIELD_SIZES = (1, 127, 128, 32_768, 262_144)
+FIELD_SAMPLE = 1000            # lanes per case checked against Python ints
+CONVERGE_N = 512               # the largest set mont_matvec takes for Fr
+CONVERGE_ITERATIONS = 20       # the client's converge iterations
+INGEST_ATTESTATIONS = 262_144  # 8 chunks of the service's 32,768
+INGEST_CHUNK = 32_768
+INGEST_DISTINCT = 1024
+INGEST_SIGNERS = 64
 
 
 class SmokeFailure(Exception):
@@ -83,6 +107,7 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 
 def phase_build() -> None:
     from protocol_tpu_torch import native
+    from protocol_tpu_torch.ops.kernels import field_kernel as fk
     from protocol_tpu_torch.ops.kernels import lane_perm_kernel as lp
 
     def timed(fn):
@@ -91,13 +116,15 @@ def phase_build() -> None:
         return time.perf_counter() - t0, str(path.relative_to(ROOT))
 
     # one compiler per source, started together
-    with ThreadPoolExecutor(max_workers=2) as pool:
+    with ThreadPoolExecutor(max_workers=3) as pool:
         nv = pool.submit(timed, lp.build)
+        nf = pool.submit(timed, fk.build)
         gx = pool.submit(timed, native.build)
-        (nvcc_s, nvcc_lib), (gxx_s, gxx_lib) = nv.result(), gx.result()
+        ((nvcc_s, nvcc_lib), (field_s, field_lib),
+         (gxx_s, gxx_lib)) = nv.result(), nf.result(), gx.result()
     check(native.available(), "native planner did not load")
-    emit("build", nvcc_s=nvcc_s, nvcc_lib=nvcc_lib, gxx_s=gxx_s,
-         gxx_lib=gxx_lib)
+    emit("build", nvcc_s=nvcc_s, nvcc_lib=nvcc_lib, field_nvcc_s=field_s,
+         field_lib=field_lib, gxx_s=gxx_s, gxx_lib=gxx_lib)
 
 
 def phase_kernel_vs_plain(device) -> float:
@@ -374,6 +401,371 @@ def phase_cli() -> None:
               "CLI output CSV wrong")
 
 
+def _moduli() -> dict:
+    from protocol_tpu_torch.utils.fields import (
+        BN254_FQ_MODULUS,
+        BN254_FR_MODULUS,
+        SECP256K1_N,
+        SECP256K1_P,
+    )
+
+    return {"bn254_fr": BN254_FR_MODULUS, "bn254_fq": BN254_FQ_MODULUS,
+            "secp256k1_p": SECP256K1_P, "secp256k1_n": SECP256K1_N}
+
+
+def _field_case(p: int, n: int, rng, lazy: bool):
+    """x (lazy sums below 512·p where asked), x reduced, and y, as ints:
+    random from the seed, the first lanes the edge values 0, 1, p − 1
+    against each other, and the largest lazy sum at lane 9."""
+    top = 512 * p if lazy else p
+    xs = [rng.getrandbits(264) % top for _ in range(n)]
+    ys = [rng.getrandbits(256) % p for _ in range(n)]
+    edges = (0, 1, p - 1)
+    for i in range(min(n, 9)):
+        xs[i], ys[i] = edges[i % 3], edges[i // 3]
+    if lazy and n > 9:
+        xs[9] = top - 1
+    return xs, [x % p for x in xs], ys
+
+
+def phase_field_kernels_vs_plain(device) -> dict:
+    """The three field kernels against their plain versions on the card,
+    bit for bit, and against Python ints on sampled lanes; returns the
+    worst |kernel − plain| per kernel."""
+    import torch
+
+    from protocol_tpu_torch.ops import fieldops as fo
+    from protocol_tpu_torch.ops.kernels import field_kernel as fk
+
+    rng = random.Random(3)
+    worst = {"mont_mul": 0, "add_mod": 0, "sub_mod": 0}
+    r_bits = fo.LIMB_BITS * fo.NUM_LIMBS
+    for name, p in _moduli().items():
+        ctx = fo.FieldCtx(p)
+        r_inv = pow(1 << r_bits, -1, p)
+        cases = []
+        for n in FIELD_SIZES:
+            lazy = name == "bn254_fr"
+            xs, xc, ys = _field_case(p, n, rng, lazy)
+            x = fo.to_device(xs, device)
+            x_c = fo.to_device(xc, device)
+            y = fo.to_device(ys, device)
+            sample = sorted(rng.sample(range(n), min(n, FIELD_SAMPLE)))
+            runs = (
+                ("mont_mul", x, fk.mont_mul, fk.mont_mul_plain,
+                 lambda i: xs[i] * ys[i] * r_inv % p),
+                ("add_mod", x_c, fk.add_mod, fk.add_mod_plain,
+                 lambda i: (xc[i] + ys[i]) % p),
+                ("sub_mod", x_c, fk.sub_mod, fk.sub_mod_plain,
+                 lambda i: (xc[i] - ys[i]) % p),
+            )
+            row = {"n": n}
+            for kname, xin, kernel, plain, want in runs:
+                got = kernel(xin, y, ctx)
+                torch.cuda.synchronize()
+                ref = plain(xin, y, ctx)
+                err = int((got.long() - ref.long()).abs().max())
+                worst[kname] = max(worst[kname], err)
+                vals = fo.from_limbs(got[sample].cpu().numpy())
+                ints_ok = vals == [want(i) for i in sample]
+                row[kname] = {"bit_exact": bool(torch.equal(got, ref)),
+                              "max_abs_err": err, "ints_ok": ints_ok}
+                check(torch.equal(got, ref),
+                      f"{kname} differs from plain ({name}, n={n})")
+                check(ints_ok, f"{kname} differs from Python ints "
+                      f"({name}, n={n})")
+            cases.append(row)
+        emit("field_kernels_vs_plain", modulus=name, lazy_x=name == "bn254_fr",
+             sampled_lanes=FIELD_SAMPLE, cases=cases)
+    return worst
+
+
+def _int_rate() -> tuple:
+    """(32-bit multiply-adds per second, its inputs) of this card: the
+    per-SM rate of the CUDA programming guide × SMs × max SM clock."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.split()[0])
+    return (INT_MULADD_PER_CLK_PER_SM * sms * mhz * 1e6,
+            {"sms": sms, "max_sm_mhz": mhz,
+             "muladd_per_clk_per_sm": INT_MULADD_PER_CLK_PER_SM})
+
+
+def phase_field_times(device) -> dict:
+    """ms of each field kernel and its plain version at the ingest chunk
+    (32,768 lanes) and at N = 512's 262,144, beside the bound."""
+    import torch
+
+    from protocol_tpu_torch.ops import fieldops as fo
+    from protocol_tpu_torch.ops.kernels import field_kernel as fk
+    from protocol_tpu_torch.utils.fields import BN254_FR_MODULUS as P_FR
+
+    ctx = fo.FieldCtx(P_FR)
+    int_rate, rate_src = _int_rate()
+    rng = random.Random(4)
+    kernels = {"mont_mul": (fk.mont_mul, fk.mont_mul_plain, 968),
+               "add_mod": (fk.add_mod, fk.add_mod_plain, 22),
+               "sub_mod": (fk.sub_mod, fk.sub_mod_plain, 22)}
+    out = {}
+    for n, iters in ((INGEST_CHUNK, 200), (262_144, 50)):
+        x = fo.to_device([rng.getrandbits(256) % P_FR for _ in range(n)],
+                         device)
+        y = fo.to_device([rng.getrandbits(256) % P_FR for _ in range(n)],
+                         device)
+        for name, (kernel, plain, ops_per_lane) in kernels.items():
+            nbytes = n * 3 * fo.NUM_LIMBS * 4  # x, y read; out written
+            ops = n * ops_per_lane
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops / int_rate * 1e3
+            rec = {
+                "kernel": name, "n": n,
+                "ms": cuda_ms(lambda: kernel(x, y, ctx), iters),
+                "plain_ms": cuda_ms(lambda: plain(x, y, ctx),
+                                    max(5, iters // 10)),
+                "bytes": nbytes, "int_ops": ops,
+                "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "library_ms": None,
+            }
+            out[(name, n)] = rec
+            emit("field_times", **rec, int_rate=int_rate, **rate_src,
+                 library_note="no single PyTorch call computes a "
+                 "Montgomery product or a multi-limb modular add")
+    return out
+
+
+def phase_field_converge(device) -> int:
+    """field_converge at N = 512, 20 iterations, against a host Python-int
+    converge of the same semantics; returns its mont_mul launches."""
+    import torch
+
+    from protocol_tpu_torch.ops import fieldops as fo
+    from protocol_tpu_torch.ops.kernels import field_kernel as fk
+    from protocol_tpu_torch.utils.fields import BN254_FR_MODULUS as P_FR
+
+    rng = random.Random(5)
+    n = CONVERGE_N
+    zero_rows = set(range(0, n, 37))
+    matrix = [[0 if i in zero_rows or i == j else rng.randrange(1000)
+               for j in range(n)] for i in range(n)]
+    initial = [1000] * n
+    ctx = fo.FieldCtx(P_FR)
+    torch.cuda.synchronize()
+    fk.reset_launches()
+    t0 = time.perf_counter()
+    got = fo.field_converge(ctx, matrix, initial, CONVERGE_ITERATIONS,
+                            device=device)
+    wall = time.perf_counter() - t0
+    launches = dict(fk.LAUNCHES)
+
+    t0 = time.perf_counter()
+    cols = []
+    for row in matrix:
+        total = sum(row)
+        inv = pow(total, P_FR - 2, P_FR) if total % P_FR else 0
+        cols.append([v * inv % P_FR for v in row])
+    cols = list(zip(*cols))  # cols[i][j] = norm[j][i]
+    s = list(initial)
+    for _ in range(CONVERGE_ITERATIONS):
+        s = [sum(map(int.__mul__, col, s)) % P_FR for col in cols]
+    host_s = time.perf_counter() - t0
+    equal = got == s
+    emit("field_converge", n=n, iterations=CONVERGE_ITERATIONS,
+         zero_rows=len(zero_rows), wall_s=wall, host_oracle_s=host_s,
+         launches=launches, equal_to_host=equal,
+         score_sum_mod_p=sum(got) % P_FR)
+    check(equal, "field_converge at N = 512 differs from the host converge")
+    check(launches["mont_mul"] > 0, "field_converge launched no mont_mul")
+    return launches["mont_mul"]
+
+
+def _unliftable_r(rng) -> int:
+    from protocol_tpu_torch.crypto.secp256k1 import N, P
+
+    while True:
+        r = rng.randrange(1, N)
+        rhs = (pow(r, 3, P) + 7) % P
+        if pow(rhs, (P + 1) // 4, P) ** 2 % P != rhs:
+            return r
+
+
+def _ingest_fixture(rng):
+    """INGEST_DISTINCT attestations by INGEST_SIGNERS signers, signed on
+    the host, tiled to INGEST_ATTESTATIONS, and forged lanes of four
+    kinds at known indices in every chunk. Returns the attestations, the
+    signer index of each honest lane (-1 where forged) and the forged
+    lanes by kind."""
+    from protocol_tpu_torch.client.attestation import (
+        AttestationData,
+        SignatureData,
+        SignedAttestationData,
+    )
+    from protocol_tpu_torch.crypto.secp256k1 import N, EcdsaKeypair
+
+    kps = [EcdsaKeypair(rng.randrange(1, N)) for _ in range(INGEST_SIGNERS)]
+    domain = rng.randbytes(20)
+    base = []
+    for i in range(INGEST_DISTINCT):
+        data = AttestationData(
+            about=kps[(i * 7 + 1) % INGEST_SIGNERS].public_key
+            .to_address_bytes(),
+            domain=domain, value=rng.randrange(256),
+            message=rng.randbytes(32))
+        sig = kps[i % INGEST_SIGNERS].sign(int(data.to_scalar().hash()))
+        base.append(SignedAttestationData(data,
+                                          SignatureData.from_signature(sig)))
+    atts = [base[i % INGEST_DISTINCT] for i in range(INGEST_ATTESTATIONS)]
+    signer = [i % INGEST_DISTINCT % INGEST_SIGNERS
+              for i in range(INGEST_ATTESTATIONS)]
+    bad_r = _unliftable_r(rng)
+    forged = {"s_altered": [], "r_at_least_n": [], "r_does_not_lift": [],
+              "wrong_parity": []}
+    for c in range(INGEST_ATTESTATIONS // INGEST_CHUNK):
+        for f, kind in enumerate(forged):
+            i = c * INGEST_CHUNK + (100 + 7 * f + c) % INGEST_CHUNK
+            a = atts[i]
+            sig = a.signature.to_signature()
+            r, s, rec = sig.r, sig.s, sig.rec_id
+            if kind == "s_altered":
+                s = s % (N - 1) + 1 if s != 1 else 2
+            elif kind == "r_at_least_n":
+                r = N + 7
+            elif kind == "r_does_not_lift":
+                r = bad_r
+            else:
+                rec ^= 1
+            atts[i] = SignedAttestationData(a.attestation, SignatureData(
+                r.to_bytes(32, "big"), s.to_bytes(32, "big"), rec))
+            signer[i] = -1
+            forged[kind].append(i)
+    return atts, signer, forged, [kp.public_key.to_address_bytes()
+                                  for kp in kps]
+
+
+def phase_ingest(device) -> dict:
+    """The slice's path: 262,144 signed attestations through
+    ``recover_signers_batch`` (8 pipelined chunks), then one chunk alone,
+    with and without ``full_verify``; returns each field kernel's
+    launches on the 262,144 run."""
+    import numpy as np
+    import torch
+
+    from protocol_tpu_torch.client import ingest
+    from protocol_tpu_torch.crypto.secp256k1 import recover_public_key
+    from protocol_tpu_torch.ops import secp_batch as sb
+    from protocol_tpu_torch.ops.kernels import field_kernel as fk
+
+    check(ingest._ingest_chunk() == INGEST_CHUNK,
+          "PTPU_INGEST_CHUNK is set; the smoke runs the default chunk")
+    rng = random.Random(6)
+    t0 = time.perf_counter()
+    atts, signer, forged, addrs = _ingest_fixture(rng)
+    fixture_s = time.perf_counter() - t0
+    addr_set = set(addrs)
+
+    torch.cuda.synchronize()
+    fk.reset_launches()
+    sb.reset_host_seconds()
+    t0 = time.perf_counter()
+    pub_keys, addresses, valid = ingest.recover_signers_batch(
+        atts, device=device)
+    wall = time.perf_counter() - t0
+    launches = dict(fk.LAUNCHES)
+    host = dict(sb.HOST_SECONDS)
+    chunks = INGEST_ATTESTATIONS // INGEST_CHUNK
+
+    # host work of the same call outside the secp stages, timed apart
+    t0 = time.perf_counter()
+    ingest._att_rows(atts)
+    [a.signature.to_signature() for a in atts]
+    row_prep_s = time.perf_counter() - t0
+
+    honest_bad = [i for i, k in enumerate(signer)
+                  if k >= 0 and not (valid[i] and addresses[i] == addrs[k])]
+    forged_report = {}
+    for kind, idx in forged.items():
+        forged_report[kind] = {
+            "lanes": len(idx),
+            "mask_false": int(sum(not valid[i] for i in idx)),
+            "recovered_a_signer": int(sum(
+                bool(valid[i]) and addresses[i] in addr_set for i in idx)),
+        }
+    host_64 = []
+    for i in range(64):  # honest lanes only: forged ones start at 100
+        a = atts[i]
+        pk = recover_public_key(a.signature.to_signature(),
+                                int(a.attestation.to_scalar().hash()))
+        host_64.append(pub_keys[i] is not None
+                       and pub_keys[i].point == pk.point)
+
+    # one chunk alone (the single-chunk branch), then audited
+    head = atts[:INGEST_CHUNK]
+    t0 = time.perf_counter()
+    _, addr_one, valid_one = ingest.recover_signers_batch(head, device=device)
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, _, valid_audit = ingest.recover_signers_batch(head, full_verify=True,
+                                                     device=device)
+    audit_s = time.perf_counter() - t0
+
+    rec = {
+        "attestations": INGEST_ATTESTATIONS, "chunks": chunks,
+        "distinct": INGEST_DISTINCT, "signers": INGEST_SIGNERS,
+        "fixture_s": fixture_s, "wall_s": wall,
+        "attestations_per_s": INGEST_ATTESTATIONS / wall,
+        "wall_s_per_chunk": wall / chunks,
+        "host_s": host, "row_prep_s_timed_apart": row_prep_s,
+        "host_share": (host["limb_prep"] + host["glv_split"] + row_prep_s)
+        / wall,
+        "launches": launches,
+        "launches_per_chunk": {k: v / chunks for k, v in launches.items()},
+        "honest_lanes_wrong": len(honest_bad), "forged": forged_report,
+        "first_64_equal_host": sum(host_64),
+        "single_chunk_s": one_s, "single_chunk_full_verify_s": audit_s,
+        "single_chunk_mask_equal": bool(np.array_equal(valid_one,
+                                                       valid[:INGEST_CHUNK])),
+        "full_verify_mask_equal": bool(np.array_equal(valid_audit,
+                                                      valid_one)),
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+    }
+    emit("ingest", **rec)
+    check(len(valid) == INGEST_ATTESTATIONS, "ingest returned a wrong count")
+    check(not honest_bad, f"{len(honest_bad)} honest lanes did not recover "
+          "their signer")
+    for kind, r in forged_report.items():
+        check(r["recovered_a_signer"] == 0,
+              f"a forged lane ({kind}) recovered a signer")
+    for kind in ("r_at_least_n", "r_does_not_lift"):
+        check(forged_report[kind]["mask_false"] == len(forged[kind]),
+              f"a forged lane ({kind}) came back valid")
+    check(all(host_64), "the first 64 lanes differ from recover_public_key")
+    check(rec["single_chunk_mask_equal"] and addr_one == addresses[
+        :INGEST_CHUNK], "the single-chunk call differs from the pipelined one")
+    check(rec["full_verify_mask_equal"], "full_verify changed the mask")
+    for k, v in launches.items():
+        check(v > 0, f"ingest launched no {k}")
+    return launches
+
+
+def _field_record(name: str, launches: int, err: int, times: dict) -> dict:
+    t = times[(name, 262_144)]
+    replaces = {"mont_mul": "protocol_tpu/ops/pallas_kernels.py:32",
+                "add_mod": "protocol_tpu/ops/fieldops.py:193",
+                "sub_mod": "protocol_tpu/ops/fieldops.py:199"}[name]
+    return {"name": name, "route": "cuda",
+            "source": "protocol_tpu_torch/csrc/field.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None}
+
+
 def main() -> int:
     import torch
 
@@ -400,6 +792,10 @@ def main() -> int:
         launches = phase_main_path(device)
         phase_entry(device)
         phase_cli()
+        field_err = phase_field_kernels_vs_plain(device)
+        field_times = phase_field_times(device)
+        phase_field_converge(device)
+        field_launches = phase_ingest(device)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -416,7 +812,8 @@ def main() -> int:
         "bound_ms": edge["bound_ms"],
         "bound_by": "bytes",
         "library_ms": edge["library_ms"],
-    }]}), flush=True)
+    }] + [_field_record(k, field_launches[k], field_err[k], field_times)
+          for k in ("mont_mul", "add_mod", "sub_mod")]}), flush=True)
     emit("done", wall_s=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,37 +19,35 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 
-_MODULES = [
-    "protocol_tpu_torch",
-    "protocol_tpu_torch.graph",
-    "protocol_tpu_torch.native",
-    "protocol_tpu_torch.ops",
-    "protocol_tpu_torch.ops.kernels",
-    "protocol_tpu_torch.ops.converge",
-    "protocol_tpu_torch.ops.clos",
-    "protocol_tpu_torch.ops.routed",
-    "protocol_tpu_torch.backend",
-    "protocol_tpu_torch.entry",
-    "protocol_tpu_torch.cli",
-    "protocol_tpu_torch.cli.main",
-    "chip_smoke",
-]
-
-
 def test_port_imports_neither_jax_nor_reference():
+    """Every module of the package, found by walking it (so a new
+    module cannot escape the check), and ``chip_smoke``."""
     code = (
-        "import importlib, json, sys\n"
-        f"for m in {_MODULES!r}:\n"
+        "import importlib, json, pkgutil, sys\n"
+        "import protocol_tpu_torch as pkg\n"
+        "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__,\n"
+        "                                              pkg.__name__ + '.')]\n"
+        "for m in mods + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax'\n"
         "             or k.startswith(('jax.', 'jaxlib'))\n"
         "             or k == 'protocol_tpu' or k.startswith('protocol_tpu.'))\n"
-        "print(json.dumps(bad))\n")
+        "print(json.dumps([mods, bad]))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+    mods, bad = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert bad == []
+    for m in ("protocol_tpu_torch.ops.routed",
+              "protocol_tpu_torch.ops.fieldops",
+              "protocol_tpu_torch.ops.kernels.field_kernel",
+              "protocol_tpu_torch.ops.secp_batch",
+              "protocol_tpu_torch.ops.poseidon_batch",
+              "protocol_tpu_torch.client.ingest",
+              "protocol_tpu_torch.crypto.secp256k1",
+              "protocol_tpu_torch.models.eigentrust"):
+        assert m in mods
 
 
 def test_port_sources_name_no_reference_import():
@@ -84,6 +82,36 @@ def test_entry_points_raise_without_gpu():
         routed_arrays(build_routed_operator(3, src, dst, val))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry()
+
+
+def test_field_and_ingest_entry_points_raise_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    from protocol_tpu_torch.client import ingest
+    from protocol_tpu_torch.client.attestation import SignedAttestationData
+    from protocol_tpu_torch.ops import secp_batch as sb
+    from protocol_tpu_torch.ops.fieldops import FieldCtx, field_converge
+    from protocol_tpu_torch.ops.poseidon_batch import (
+        PoseidonBatch,
+        get_poseidon_batch,
+    )
+
+    calls = [
+        lambda: field_converge(FieldCtx(7), [[0, 1], [1, 0]], [1, 1], 1),
+        lambda: get_poseidon_batch(),
+        lambda: PoseidonBatch(),
+        lambda: sb.recover_batch([1], [1], [0], [1]),
+        lambda: sb.recover_submit([1], [1], [0], [1]),
+        lambda: next(sb.recover_stream([([1], [1], [0], [1])])),
+        lambda: sb.verify_batch([1], [1], [1], [(1, 1)]),
+        lambda: next(ingest.hash_recover_pipeline([[[0]]], [([1], [1], [0])])),
+        lambda: ingest.attestation_hashes_batch([SignedAttestationData()]),
+        lambda: ingest.recover_signers_batch([SignedAttestationData()]),
+        lambda: ingest.recover_signers_batch([]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_cli_without_device_fails_cleanly(tmp_path, capsys):

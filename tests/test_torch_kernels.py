@@ -82,3 +82,88 @@ def test_lane_perm_kernel_takes_unaligned_views():
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["lane_perm"] == before + 1
     assert torch.equal(y, lane_perm_plain(x2, idx))
+
+
+# --- the field kernels (csrc/field.cu) ----------------------------------------
+
+from protocol_tpu_torch.ops import fieldops as fo  # noqa: E402
+from protocol_tpu_torch.ops.kernels import field_kernel as fk  # noqa: E402
+from protocol_tpu_torch.utils.fields import (  # noqa: E402
+    BN254_FQ_MODULUS,
+    BN254_FR_MODULUS,
+    SECP256K1_N,
+    SECP256K1_P,
+)
+
+_MODULI = (BN254_FR_MODULUS, BN254_FQ_MODULUS, SECP256K1_P, SECP256K1_N)
+_FIELD = (("mont_mul", fk.mont_mul, fk.mont_mul_plain),
+          ("add_mod", fk.add_mod, fk.add_mod_plain),
+          ("sub_mod", fk.sub_mod, fk.sub_mod_plain))
+
+
+def _field_rows(p, n, seed):
+    """x (lazy sums below min(512, R/p)·p on every other lane), x mod p
+    and y, as (n, 22) int32 tensors; the first lanes are 0, 1 and p − 1
+    against each other."""
+    rng = np.random.default_rng(seed)
+    top = min(512, (1 << 264) // p) * p
+    xs = [int.from_bytes(rng.bytes(34), "little") % (top if i % 2 else p)
+          for i in range(n)]
+    ys = [int.from_bytes(rng.bytes(33), "little") % p for _ in range(n)]
+    edges = (0, 1, p - 1)
+    for i in range(min(n, 9)):
+        xs[i], ys[i] = edges[i % 3], edges[i // 3]
+    t = lambda v: torch.from_numpy(fo.to_limbs(v))  # noqa: E731
+    return t(xs), t([x % p for x in xs]), t(ys)
+
+
+@pytest.mark.parametrize("name,kernel,plain", _FIELD)
+def test_field_kernels_on_cpu_are_the_plain_versions(name, kernel, plain):
+    ctx = fo.FieldCtx(BN254_FR_MODULUS)
+    x, xc, y = _field_rows(ctx.modulus, 40, 1)
+    x = x if name == "mont_mul" else xc
+    before = dict(fk.LAUNCHES)
+    assert torch.equal(kernel(x, y, ctx), plain(x, y, ctx))
+    assert fk.LAUNCHES == before  # no kernel on the CPU
+
+
+@pytest.mark.parametrize("name,kernel,plain", _FIELD)
+def test_field_kernels_refuse_bad_input(name, kernel, plain):
+    ctx = fo.FieldCtx(SECP256K1_P)
+    x = torch.zeros(4, 22, dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32"):
+        kernel(x.long(), x.long(), ctx)
+    with pytest.raises(ValueError, match="int32"):
+        kernel(x, x.float(), ctx)
+    with pytest.raises(ValueError, match="22"):
+        kernel(x[:, :21], x[:, :21], ctx)
+    with pytest.raises(ValueError, match="differs"):
+        kernel(x, x[:3], ctx)
+    with pytest.raises(ValueError, match="different devices"):
+        kernel(x, x.to("meta"), ctx)
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernel(x.to("meta"), x.to("meta"), ctx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", _MODULI)
+def test_field_kernels_match_plain(p):
+    """Each field kernel, bit-exact against its plain version on the
+    card (edge values, lazy x for the multiply, n below, at and past one
+    128-thread block), one count per launch; strided views are copied,
+    not refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    ctx = fo.FieldCtx(p)
+    for n in (1, 127, 128, 129, 1000):
+        x, xc, y = (t.cuda() for t in _field_rows(p, n, n))
+        for name, kernel, plain in _FIELD:
+            xin = x if name == "mont_mul" else xc
+            before = fk.LAUNCHES[name]
+            got = kernel(xin, y, ctx)
+            torch.cuda.synchronize()
+            assert fk.LAUNCHES[name] == before + 1
+            assert torch.equal(got, plain(xin, y, ctx)), (name, n)
+    y_t = y.t().contiguous().t()  # same values, column-major strides
+    assert not y_t.is_contiguous()
+    assert torch.equal(fk.mont_mul(x, y_t, ctx), fk.mont_mul_plain(x, y, ctx))
