@@ -672,12 +672,14 @@ def phase_ingest(device) -> dict:
     torch.cuda.synchronize()
     fk.reset_launches()
     sb.reset_host_seconds()
+    ingest.reset_host_seconds()
     t0 = time.perf_counter()
     pub_keys, addresses, valid = ingest.recover_signers_batch(
         atts, device=device)
     wall = time.perf_counter() - t0
     launches = dict(fk.LAUNCHES)
     host = dict(sb.HOST_SECONDS)
+    address_s = ingest.HOST_SECONDS["addresses"]
     chunks = INGEST_ATTESTATIONS // INGEST_CHUNK
 
     # host work of the same call outside the secp stages, timed apart
@@ -721,8 +723,10 @@ def phase_ingest(device) -> dict:
         "attestations_per_s": INGEST_ATTESTATIONS / wall,
         "wall_s_per_chunk": wall / chunks,
         "host_s": host, "row_prep_s_timed_apart": row_prep_s,
-        "host_share": (host["limb_prep"] + host["glv_split"] + row_prep_s)
-        / wall,
+        "address_s": address_s, "address_share": address_s / wall,
+        "address_us_per_lane": address_s / INGEST_ATTESTATIONS * 1e6,
+        "host_share": (host["limb_prep"] + host["glv_split"] + row_prep_s
+                       + address_s) / wall,
         "launches": launches,
         "launches_per_chunk": {k: v / chunks for k, v in launches.items()},
         "honest_lanes_wrong": len(honest_bad), "forged": forged_report,

@@ -25,6 +25,7 @@ addresses) identical to the scalar path. Every entry point takes
 from __future__ import annotations
 
 import os
+import time
 from typing import Sequence
 
 import numpy as np
@@ -32,6 +33,16 @@ import numpy as np
 from ..crypto.secp256k1 import AffinePoint, PublicKey
 from ..device import resolve_device
 from ..models.eigentrust import HASHER_WIDTH
+
+
+# host seconds of the per-lane address derivation (a keccak each), summed
+# over calls until reset; chip_smoke.py reads it for the ingest's host share
+HOST_SECONDS = {"addresses": 0.0}
+
+
+def reset_host_seconds() -> None:
+    for k in HOST_SECONDS:
+        HOST_SECONDS[k] = 0.0
 
 
 def _pow2_bucket(k: int) -> int:
@@ -180,21 +191,16 @@ def recover_signers_batch(attestations: Sequence,
             valid = valid & ok
         xs, ys, valid = xs[:k], ys[:k], valid[:k]
 
-    # a signer's key comes back once per attestation it signed: derive
-    # each distinct key's address (a keccak on the host) once
+    t0 = time.perf_counter()
     pub_keys = []
     addresses = []
-    known: dict = {}
     for x, y, v in zip(xs, ys, valid):
         if v:
-            xy = (int(x), int(y))
-            if xy not in known:
-                pk = PublicKey(AffinePoint(*xy))
-                known[xy] = (pk, pk.to_address_bytes())
-            pk, addr = known[xy]
+            pk = PublicKey(AffinePoint(int(x), int(y)))
             pub_keys.append(pk)
-            addresses.append(addr)
+            addresses.append(pk.to_address_bytes())
         else:
             pub_keys.append(None)
             addresses.append(None)
+    HOST_SECONDS["addresses"] += time.perf_counter() - t0
     return pub_keys, addresses, np.asarray(valid)

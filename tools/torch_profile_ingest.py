@@ -22,61 +22,27 @@ import json
 import random
 import subprocess
 import sys
-import time
-from collections import defaultdict
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 
-def _union_us(intervals) -> float:
-    total = 0.0
-    end = float("-inf")
-    for a, b in sorted(intervals):
-        if a > end:
-            total += b - a
-            end = b
-        elif b > end:
-            total += b - end
-            end = b
-    return total
-
-
-def profile(stage) -> dict:
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
+def profile_stage(stage) -> dict:
+    """One warm-up call of ``stage``, then one under the profiler, with
+    the field kernels' launches and the recovery's host seconds of the
+    profiled call."""
+    from torch_profile_sweep import profile
 
     from protocol_tpu_torch.ops import secp_batch as sb
     from protocol_tpu_torch.ops.kernels import field_kernel as fk
 
-    stage()
-    torch.cuda.synchronize()
-    fk.reset_launches()
-    sb.reset_host_seconds()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        stage()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_name = defaultdict(float)
-    for e in kernels:
-        by_name[e.name] += e.time_range.elapsed_us()
-    busy_us = _union_us((e.time_range.start, e.time_range.end)
-                        for e in kernels)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    return {
-        "device_events": len(kernels),
-        "wall_ms": wall_us / 1e3,
-        "device_busy_ms": busy_us / 1e3,
-        "device_idle_share": (1.0 - busy_us / wall_us) if kernels else None,
-        "field_launches": dict(fk.LAUNCHES),
-        "host_s": dict(sb.HOST_SECONDS),
-        "kernels_ms": {k[:120]: v / 1e3 for k, v in top},
-    }
+    def reset():
+        fk.reset_launches()
+        sb.reset_host_seconds()
+
+    rec = profile(stage, reset=reset)
+    return {**rec, "field_launches": dict(fk.LAUNCHES),
+            "host_s": dict(sb.HOST_SECONDS)}
 
 
 def main() -> int:
@@ -119,10 +85,10 @@ def main() -> int:
     pb = get_poseidon_batch(device="cuda")
     msgs = pb.hash_batch(rows)
 
-    rec = profile(lambda: pb.hash_batch(rows))
+    rec = profile_stage(lambda: pb.hash_batch(rows))
     print(json.dumps({"stage": "hash", "lanes": args.lanes, "card": card,
                       **rec}), flush=True)
-    rec = profile(lambda: sb.recover_batch(
+    rec = profile_stage(lambda: sb.recover_batch(
         [s.r for s in sigs], [s.s for s in sigs], [s.rec_id for s in sigs],
         msgs, device="cuda"))
     print(json.dumps({"stage": "recover", "lanes": args.lanes, "card": card,

@@ -38,20 +38,27 @@ def _union_us(intervals) -> float:
     return total
 
 
-def profile(step, s, sweeps: int) -> dict:
+def profile(run, repeats: int = 1, warmup: int = 1, reset=None) -> dict:
+    """Calls ``run()`` ``warmup`` times, then ``reset()`` if given, then
+    ``repeats`` times under ``torch.profiler``. Returns, per repeat, the
+    host wall time, the device busy time (the union of kernel intervals)
+    and device time per kernel name, and the device's idle share of the
+    profiled window. Shared with ``torch_profile_ingest.py``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    for _ in range(3):
-        step(s)
+    for _ in range(warmup):
+        run()
     torch.cuda.synchronize()
+    if reset is not None:
+        reset()
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(sweeps):
-            step(s)
+        for _ in range(repeats):
+            run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -62,12 +69,12 @@ def profile(step, s, sweeps: int) -> dict:
                         for e in kernels)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {
-        "sweeps": sweeps,
+        "repeats": repeats,
         "device_events": len(kernels),
-        "wall_ms_per_sweep": wall_us / sweeps / 1e3,
-        "device_busy_ms_per_sweep": busy_us / sweeps / 1e3,
+        "wall_ms": wall_us / repeats / 1e3,
+        "device_busy_ms": busy_us / repeats / 1e3,
         "device_idle_share": (1.0 - busy_us / wall_us) if kernels else None,
-        "kernels_ms_per_sweep": {k[:120]: v / sweeps / 1e3 for k, v in top},
+        "kernels_ms": {k[:120]: v / repeats / 1e3 for k, v in top},
     }
 
 
@@ -103,7 +110,8 @@ def main() -> int:
     arrs, static = routed_arrays(op, dtype=torch.float32, alpha=0.1,
                                  device="cuda")
     s = torch.from_numpy(op.initial_scores(1000.0)).cuda()
-    rec = profile(lambda v: spmv_routed(arrs, static, v), s, args.sweeps)
+    rec = profile(lambda: spmv_routed(arrs, static, s), args.sweeps,
+                  warmup=3)
     print(json.dumps({"engine": "routed", "peers": n, "card": card, **rec}),
           flush=True)
     del arrs
@@ -112,7 +120,7 @@ def main() -> int:
     garrs = operator_arrays(gop, dtype=torch.float32, alpha=0.1,
                             device="cuda")
     gs = torch.from_numpy(gop.valid * 1000.0).cuda()
-    rec = profile(lambda v: spmv(garrs, v), gs, args.sweeps)
+    rec = profile(lambda: spmv(garrs, gs), args.sweeps, warmup=3)
     print(json.dumps({"engine": "gather", "peers": n, "card": card, **rec}),
           flush=True)
     return 0
