@@ -16,14 +16,20 @@ the same card, the ``entry()`` twin against its CPU run, and the
 
 The second path is batched attestation ingest on the field kernels
 (``csrc/field.cu``: the Montgomery multiply that replaces the TPU's
-``_mont_mul_kernel``, and the modular add and subtract). The script
-holds each against its plain PyTorch version bit for bit (four moduli,
-n from 1 to 262,144, edge and lazy values, and Python ints on sampled
-lanes), times them beside their bounds, runs ``field_converge`` at
-N = 512 against a host Python-int converge, and ingests 262,144 signed
-attestations (1,024 distinct ones by 64 signers, tiled, with forged
-lanes at known indices) through ``recover_signers_batch``: every honest
-lane must recover its signer, every forged one must not.
+``_mont_mul_kernel``, and the modular add and subtract). The build
+phase prints ptxas's registers and spills for ``field.cu`` and fails if
+``mont_mul`` spills or passes 64 registers. The script holds each
+kernel against its plain PyTorch version bit for bit (four moduli, n
+from 1 to 819,200 around the tile sizes, edge and lazy values, operands
+as made, 16-byte-misaligned views and broadcast rows, and Python ints
+on sampled lanes), times them by CUDA-graph replay (device time without
+the host's pacing) and back to back at 32,768, 262,144 and 819,200
+lanes beside their bounds, runs ``field_converge`` at N = 512 against a
+host Python-int converge, and ingests 262,144 signed attestations
+(1,024 distinct ones by 64 signers, tiled, with forged lanes at known
+indices) through ``recover_signers_batch``: every honest lane must
+recover its signer, every forged one must not, and the field kernels'
+launches per chunk must be the path's.
 
 Every phase prints one JSON line; any failed check exits non-zero. The
 last lines are the ``kernels`` record, the card's name and power limit,
@@ -37,6 +43,7 @@ from __future__ import annotations
 import json
 import os
 import random
+import re
 import subprocess
 import sys
 import tempfile
@@ -57,8 +64,16 @@ CLI_PEERS = 100_000
 # 32-bit integer multiply-adds per clock per SM on compute capability 9.0
 # (CUDA C++ Programming Guide, arithmetic instruction throughput table)
 INT_MULADD_PER_CLK_PER_SM = 64
-FIELD_SIZES = (1, 127, 128, 32_768, 262_144)
+# around one tile of mont_mul/add_mod (64 rows) and one block of sub_mod
+# (128), an ingest chunk, N = 512's products and the Poseidon MDS step
+FIELD_SIZES = (1, 63, 64, 65, 127, 128, 129, 32_768, 262_144, 819_200)
 FIELD_SAMPLE = 1000            # lanes per case checked against Python ints
+# (lanes, launches per CUDA graph) of the field kernels' device times
+FIELD_TIME_SIZES = ((32_768, 400), (262_144, 100), (819_200, 40))
+FIELD_MAX_REGISTERS = 64       # mont_mul's budget, with no spills
+# field-kernel launches per 32,768-lane ingest chunk (hash and recovery)
+FIELD_LAUNCHES_PER_CHUNK = {"mont_mul": 5449, "add_mod": 2568,
+                            "sub_mod": 2110}
 CONVERGE_N = 512               # the largest set mont_matvec takes for Fr
 CONVERGE_ITERATIONS = 20       # the client's converge iterations
 INGEST_ATTESTATIONS = 262_144  # 8 chunks of the service's 32,768
@@ -105,8 +120,62 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return a.elapsed_time(b) / iters
 
 
+def graph_ms(fn, launches: int, replays: int = 5) -> float:
+    """Device time of one call of ``fn`` without the host's pacing:
+    ``launches`` calls captured in one CUDA graph, the median of
+    ``replays`` replays divided by ``launches``."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(replays):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    return sorted(times)[replays // 2]
+
+
+def ptxas_usage(log: str) -> dict:
+    """Registers, spill bytes and shared memory of each kernel, from the
+    ``-Xptxas -v`` messages of a build."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = next((k for k in ("mont_mul", "add_mod", "sub_mod")
+                         if f"{k}_kernel" in m.group(1)), m.group(1))
+            usage[name] = {}
+        elif name is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                usage[name]["spill_bytes"] = int(m[1]) + int(m[2])
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                usage[name]["registers"] = int(m[1])
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                usage[name]["smem_bytes"] = int(m[1])
+    return usage
+
+
 def phase_build() -> None:
     from protocol_tpu_torch import native
+    from protocol_tpu_torch._build import build_log
     from protocol_tpu_torch.ops.kernels import field_kernel as fk
     from protocol_tpu_torch.ops.kernels import lane_perm_kernel as lp
 
@@ -123,8 +192,18 @@ def phase_build() -> None:
         ((nvcc_s, nvcc_lib), (field_s, field_lib),
          (gxx_s, gxx_lib)) = nv.result(), nf.result(), gx.result()
     check(native.available(), "native planner did not load")
+    log = build_log(ROOT / field_lib)
+    usage = ptxas_usage(log)
     emit("build", nvcc_s=nvcc_s, nvcc_lib=nvcc_lib, field_nvcc_s=field_s,
-         field_lib=field_lib, gxx_s=gxx_s, gxx_lib=gxx_lib)
+         field_lib=field_lib, gxx_s=gxx_s, gxx_lib=gxx_lib,
+         field_ptxas=[ln.strip() for ln in log.splitlines()
+                      if "ptxas" in ln or "spill" in ln],
+         field_usage=usage)
+    mm = usage.get("mont_mul", {})
+    check(mm.get("registers", FIELD_MAX_REGISTERS + 1) <= FIELD_MAX_REGISTERS
+          and mm.get("spill_bytes") == 0,
+          f"mont_mul uses {mm} (budget {FIELD_MAX_REGISTERS} registers, "
+          "no spills)")
 
 
 def phase_kernel_vs_plain(device) -> float:
@@ -428,10 +507,41 @@ def _field_case(p: int, n: int, rng, lazy: bool):
     return xs, [x % p for x in xs], ys
 
 
+def _operand_forms(n: int) -> tuple:
+    """The forms a kernel's operands take on the path: rows as made;
+    views 88 and 264 bytes into their storage (not on a 16-byte
+    boundary: ``x[1:]``, ``y[3:]``); and one row broadcast to all n
+    lanes on either side (row stride 0, as ``fieldops.const_rows``
+    makes). Each is (name, form of x, form of y, int lane of x, of y)."""
+    import torch
+
+    b = n // 2
+
+    def offset(k):  # the rows as a view k rows into a larger tensor
+        return lambda t: torch.cat([t.new_zeros(k, t.shape[1]), t])[k:]
+
+    def bcast(t):
+        return t[b:b + 1].expand(n, t.shape[1])
+
+    def keep(t):
+        return t
+
+    def lane(i):
+        return i
+
+    def lane_b(i):
+        return b
+
+    return (("as_made", keep, keep, lane, lane),
+            ("offset", offset(1), offset(3), lane, lane),
+            ("broadcast_x", bcast, keep, lane_b, lane),
+            ("broadcast_y", keep, bcast, lane, lane_b))
+
+
 def phase_field_kernels_vs_plain(device) -> dict:
     """The three field kernels against their plain versions on the card,
-    bit for bit, and against Python ints on sampled lanes; returns the
-    worst |kernel − plain| per kernel."""
+    bit for bit, and against Python ints on sampled lanes, at every size
+    and operand form; returns the worst |kernel − plain| per kernel."""
     import torch
 
     from protocol_tpu_torch.ops import fieldops as fo
@@ -443,7 +553,7 @@ def phase_field_kernels_vs_plain(device) -> dict:
     for name, p in _moduli().items():
         ctx = fo.FieldCtx(p)
         r_inv = pow(1 << r_bits, -1, p)
-        cases = []
+        checks = 0
         for n in FIELD_SIZES:
             lazy = name == "bn254_fr"
             xs, xc, ys = _field_case(p, n, rng, lazy)
@@ -453,30 +563,36 @@ def phase_field_kernels_vs_plain(device) -> dict:
             sample = sorted(rng.sample(range(n), min(n, FIELD_SAMPLE)))
             runs = (
                 ("mont_mul", x, fk.mont_mul, fk.mont_mul_plain,
-                 lambda i: xs[i] * ys[i] * r_inv % p),
+                 lambda i, j: xs[i] * ys[j] * r_inv % p),
                 ("add_mod", x_c, fk.add_mod, fk.add_mod_plain,
-                 lambda i: (xc[i] + ys[i]) % p),
+                 lambda i, j: (xc[i] + ys[j]) % p),
                 ("sub_mod", x_c, fk.sub_mod, fk.sub_mod_plain,
-                 lambda i: (xc[i] - ys[i]) % p),
+                 lambda i, j: (xc[i] - ys[j]) % p),
             )
-            row = {"n": n}
-            for kname, xin, kernel, plain, want in runs:
-                got = kernel(xin, y, ctx)
-                torch.cuda.synchronize()
-                ref = plain(xin, y, ctx)
-                err = int((got.long() - ref.long()).abs().max())
-                worst[kname] = max(worst[kname], err)
-                vals = fo.from_limbs(got[sample].cpu().numpy())
-                ints_ok = vals == [want(i) for i in sample]
-                row[kname] = {"bit_exact": bool(torch.equal(got, ref)),
-                              "max_abs_err": err, "ints_ok": ints_ok}
-                check(torch.equal(got, ref),
-                      f"{kname} differs from plain ({name}, n={n})")
-                check(ints_ok, f"{kname} differs from Python ints "
-                      f"({name}, n={n})")
-            cases.append(row)
+            for form, fx, fy, ix, iy in _operand_forms(n):
+                yin = fy(y)
+                for kname, xin, kernel, plain, want in runs:
+                    xin = fx(xin)
+                    if form == "offset":
+                        check(xin.data_ptr() % 16 and yin.data_ptr() % 16,
+                              "offset operands are on a 16-byte boundary")
+                    got = kernel(xin, yin, ctx)
+                    torch.cuda.synchronize()
+                    ref = plain(xin, yin, ctx)
+                    err = int((got.long() - ref.long()).abs().max())
+                    worst[kname] = max(worst[kname], err)
+                    vals = fo.from_limbs(got[sample].cpu().numpy())
+                    check(torch.equal(got, ref), f"{kname} differs from "
+                          f"plain ({name}, n={n}, {form} operands)")
+                    check(vals == [want(ix(i), iy(i)) for i in sample],
+                          f"{kname} differs from Python ints ({name}, "
+                          f"n={n}, {form} operands)")
+                    checks += 1
         emit("field_kernels_vs_plain", modulus=name, lazy_x=name == "bn254_fr",
-             sampled_lanes=FIELD_SAMPLE, cases=cases)
+             sizes=list(FIELD_SIZES),
+             forms=[f[0] for f in _operand_forms(1)],
+             sampled_lanes=FIELD_SAMPLE, cases_bit_exact=checks,
+             cases_ints_ok=checks)
     return worst
 
 
@@ -497,8 +613,10 @@ def _int_rate() -> tuple:
 
 
 def phase_field_times(device) -> dict:
-    """ms of each field kernel and its plain version at the ingest chunk
-    (32,768 lanes) and at N = 512's 262,144, beside the bound."""
+    """Each field kernel at the path's lane counts: an ingest chunk
+    (32,768), N = 512's products (262,144) and the Poseidon MDS step
+    (819,200). Device ms per launch from CUDA-graph replay, beside the
+    host-paced back-to-back ms, the plain version and the bound."""
     import torch
 
     from protocol_tpu_torch.ops import fieldops as fo
@@ -512,7 +630,7 @@ def phase_field_times(device) -> dict:
                "add_mod": (fk.add_mod, fk.add_mod_plain, 22),
                "sub_mod": (fk.sub_mod, fk.sub_mod_plain, 22)}
     out = {}
-    for n, iters in ((INGEST_CHUNK, 200), (262_144, 50)):
+    for n, launches in FIELD_TIME_SIZES:
         x = fo.to_device([rng.getrandbits(256) % P_FR for _ in range(n)],
                          device)
         y = fo.to_device([rng.getrandbits(256) % P_FR for _ in range(n)],
@@ -522,19 +640,27 @@ def phase_field_times(device) -> dict:
             ops = n * ops_per_lane
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = ops / int_rate * 1e3
-            rec = {
-                "kernel": name, "n": n,
-                "ms": cuda_ms(lambda: kernel(x, y, ctx), iters),
+            ms = graph_ms(lambda: kernel(x, y, ctx), launches)
+            out[(name, n)] = {
+                "kernel": name, "n": n, "ms": ms,
+                "back_to_back_ms": cuda_ms(lambda: kernel(x, y, ctx),
+                                           launches),
                 "plain_ms": cuda_ms(lambda: plain(x, y, ctx),
-                                    max(5, iters // 10)),
+                                    max(5, launches // 20)),
                 "bytes": nbytes, "int_ops": ops,
                 "bytes_ms": bytes_ms, "ops_ms": ops_ms,
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "share_of_bound": max(bytes_ms, ops_ms) / ms,
                 "library_ms": None,
             }
-            out[(name, n)] = rec
-            emit("field_times", **rec, int_rate=int_rate, **rate_src,
+        del x, y
+        control = out[("sub_mod", n)]["ms"]
+        for name in kernels:
+            rec = out[(name, n)]
+            rec["ms_over_sub_mod"] = rec["ms"] / control
+            emit("field_times", **rec, graph_launches=launches,
+                 int_rate=int_rate, **rate_src,
                  library_note="no single PyTorch call computes a "
                  "Montgomery product or a multi-limb modular add")
     return out
@@ -752,8 +878,9 @@ def phase_ingest(device) -> dict:
     check(rec["single_chunk_mask_equal"] and addr_one == addresses[
         :INGEST_CHUNK], "the single-chunk call differs from the pipelined one")
     check(rec["full_verify_mask_equal"], "full_verify changed the mask")
-    for k, v in launches.items():
-        check(v > 0, f"ingest launched no {k}")
+    for k, v in FIELD_LAUNCHES_PER_CHUNK.items():
+        check(launches[k] == v * chunks, f"ingest launched {k} "
+              f"{launches[k]} times, not {v} per chunk × {chunks}")
     return launches
 
 

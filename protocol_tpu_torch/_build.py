@@ -7,7 +7,9 @@ and the compile command, so an edited source or flag never loads a
 stale library. Several processes may ask at once (the test suite runs
 under several workers): the build holds a file lock, compiles to a
 temporary name and moves the result into place with ``os.replace``, so
-no process ever loads a half-written file.
+no process ever loads a half-written file. The compiler's messages of
+a successful build (``-Xptxas -v``'s registers and spills, say) are kept
+beside the library (``build_log``).
 """
 
 from __future__ import annotations
@@ -45,8 +47,16 @@ def build_shared_library(name: str, src: Path, cmd: list,
                 raise RuntimeError(
                     f"building {src.name} failed ({' '.join(cmd)}):\n"
                     f"{proc.stderr[-4000:]}")
+            # the log is in place before the library that readers wait on
+            lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
             os.replace(tmp, lib)
         finally:
             if tmp.exists():
                 tmp.unlink()
     return lib
+
+
+def build_log(lib: Path) -> str:
+    """The compiler's messages from the build of ``lib`` ("" if none)."""
+    log = Path(lib).with_suffix(".log")
+    return log.read_text() if log.exists() else ""

@@ -14,10 +14,10 @@
 // canonical. The output is canonical, in [0, p).
 //
 // add_mod and sub_mod compute (x + y) mod p and (x − y) mod p on the same
-// rows. They are not TPU kernels: the plain versions cost about a hundred
-// torch launches each (a carry ripple and a limb compare), and the
-// recovery ladder runs thousands of them per chunk, so in one launch each
-// they keep the card from waiting on the host.
+// rows. They are not TPU kernels (add_mod replaces the jnp
+// protocol_tpu/ops/fieldops.py::add_mod, sub_mod its sub_mod): the plain
+// versions cost about a hundred torch launches each, and the recovery
+// ladder runs thousands of them per chunk.
 //
 // Arithmetic. mont_mul is the CIOS of fieldops.mont_mul, step for step:
 // 22 steps, each adding x_s·y and u·p into a 24-limb accumulator without
@@ -32,21 +32,59 @@
 // limb in [0, 4096)), so the output is bit-identical to the plain
 // version for any normalised input.
 //
-// Bound. Per element mont_mul moves 264 bytes (x and y read, out written:
-// 3 × 22 int32) and does 968 32-bit multiply-adds (2 × 22 × 22). At
-// 262,144 elements that is 69 MB, 21 µs at the H100's 3.35 TB/s (data
-// sheet), against 254M multiply-adds, 15 µs at 64 integer multiply-adds
-// per clock per SM (the CUDA C++ Programming Guide's throughput table for
-// compute capability 9.0) × 132 SMs × 1.98 GHz: the bytes bind, though
-// barely. add_mod and sub_mod move the same 264 bytes and do 22 adds:
-// bytes bind.
+// Bound (NVIDIA H100 SXM, 3.35 TB/s; 64 integer multiply-adds per clock
+// per SM × 132 SMs × 1.98 GHz, the CUDA C++ Programming Guide's table for
+// compute capability 9.0). Per element each kernel moves 264 bytes (x
+// and y read, out written: 3 × 22 int32); mont_mul also does 968 32-bit
+// multiply-adds (2 × 22 × 22), add_mod and sub_mod 22 adds. The path
+// runs them at three lane counts:
 //
-// Design, simple first: one thread per element. It reads its two rows of
-// the row-major (n, 22) tensors (a warp's rows are contiguous, so L1
-// serves the strided reads), keeps x, y and the accumulator in registers
-// for all 22 steps, and writes its row. The modulus limbs and -p⁻¹ mod
-// 2^12 are kernel arguments, so one binary serves every modulus (BN254 Fr
-// and Fq, secp256k1 p and n). Any n ≥ 1 works.
+//     lanes      bytes bound   mont_mul operations
+//     32,768     0.0026 ms     0.0019 ms   (an ingest recovery chunk)
+//     262,144    0.0207 ms     0.0152 ms   (field_converge at N = 512)
+//     819,200    0.0646 ms     0.0474 ms   (the Poseidon MDS step)
+//
+// Bytes bind every kernel at every size, mont_mul's operations close
+// behind. At 32,768 lanes the grid is 256 blocks on 132 SMs: latency
+// and launch, not a rate, decide there.
+//
+// Design. The first design gave each thread its own 88-byte row, read
+// and written one int32 at a time: a warp's load then spans 2,816 bytes
+// on 22 cache lines, and every kernel took the same time whatever its
+// arithmetic, a fifth of the bytes bound. Now a block of kRows = 64
+// threads owns 64 consecutive rows. Each operand's tile is 64 × 88 =
+// 5,632 contiguous bytes in device memory, and it comes into shared
+// memory in one bulk copy (cp.async.bulk, the TMA's 1-D form), issued by
+// thread 0 and completing on an mbarrier; the result tile goes back the
+// same way. Each thread reads its row from shared memory in 8-byte
+// pieces: the row stride of 11 such pieces is odd, so the 16 threads of
+// each half-warp phase touch 32 distinct banks, with no conflict (a
+// 4-byte read of a 22-word stride would conflict 2-way, gcd(22, 32) = 2).
+// mont_mul reads each x limb from shared memory in its CIOS step, which
+// with __launch_bounds__(64, 16) keeps it at 64 registers with no
+// spills. The arithmetic is the same as before, step for step; each
+// result row goes back into the x tile. A tile whose address or length is
+// not a multiple of 16 bytes (the ragged last tile of an odd row count;
+// a view such as x[1:], 88 bytes into its storage) moves as coalesced
+// 4-byte words by the threads instead, in the same kernel: the path is
+// chosen per tile from the pointer and the rows. An operand whose rows
+// are all one broadcast row (row stride 0, as fieldops.const_rows makes
+// them) is read once per block: 22 words into shared memory, which
+// every thread then reads as a broadcast. The bulk copy beat 16-byte
+// words moved by the threads (FIELD_THREAD_COPY) for mont_mul and
+// matched them for add_mod; 64-row tiles beat 128-row ones (FIELD_ROWS)
+// at 32,768 lanes, where the recovery ladder runs them, and came within a
+// few per cent at the larger sizes. tools/torch_field_variants.py
+// measures the three builds; PERF.md has the numbers.
+//
+// sub_mod keeps the first design, one thread per element reading and
+// writing its own 88-byte row with 4-byte loads (row stride 0 or 22):
+// it moves the same bytes and does the same adds as add_mod, so beside
+// it in one run it shows what the staging does.
+//
+// The modulus limbs and -p⁻¹ mod 2^12 are kernel arguments, so one binary
+// serves every modulus (BN254 Fr and Fq, secp256k1 p and n). Any n ≥ 1
+// works.
 //
 // Interface: one plain C function, loaded with ctypes. It launches on the
 // given stream, does not synchronise, and returns cudaGetLastError().
@@ -54,12 +92,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// Build-time variants, for tools/torch_field_variants.py to measure the
+// design against its alternatives; the defaults are the design.
+#ifndef FIELD_ROWS
+#define FIELD_ROWS 64  // rows (and threads) of a staged block: 64 or 128
+#endif
+#ifndef FIELD_THREAD_COPY
+#define FIELD_THREAD_COPY 0  // 1: threads move 16-byte words, no bulk copy
+#endif
+
 namespace {
 
 constexpr int kBits = 12;
 constexpr int kLimbs = 22;
 constexpr int32_t kMask = (1 << kBits) - 1;
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;  // sub_mod's block
+constexpr int kRows = FIELD_ROWS;
+constexpr int kTileWords = kRows * kLimbs;
+// blocks per SM that mont_mul must fit: 64 registers a thread at most
+constexpr int kMinBlocks = 65536 / (64 * kRows);
 
 struct Modulus {
     int32_t p[kLimbs];
@@ -93,21 +144,6 @@ __device__ __forceinline__ bool geq(const int32_t (&a)[kLimbs],
     return gt || eq;
 }
 
-__device__ __forceinline__ void load_row(const int32_t *__restrict__ src,
-                                         int64_t i, int32_t (&r)[kLimbs]) {
-    const int32_t *row = src + i * kLimbs;
-#pragma unroll
-    for (int j = 0; j < kLimbs; ++j) r[j] = __ldg(row + j);
-}
-
-__device__ __forceinline__ void store_row(int32_t *__restrict__ dst,
-                                          int64_t i,
-                                          const int32_t (&r)[kLimbs]) {
-    int32_t *row = dst + i * kLimbs;
-#pragma unroll
-    for (int j = 0; j < kLimbs; ++j) row[j] = r[j];
-}
-
 // one conditional subtract of p, then the carry pass (t normalised)
 __device__ __forceinline__ void cond_sub_p(int32_t (&t)[kLimbs],
                                            const int32_t (&p)[kLimbs]) {
@@ -118,14 +154,13 @@ __device__ __forceinline__ void cond_sub_p(int32_t (&t)[kLimbs],
     ripple<kLimbs>(t);
 }
 
-__global__ void __launch_bounds__(kThreads)
-mont_mul_kernel(const int32_t *__restrict__ x, const int32_t *__restrict__ y,
-                int32_t *__restrict__ out, int64_t n, Modulus m) {
-    const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-    if (i >= n) return;
-    int32_t xs[kLimbs], ys[kLimbs], p[kLimbs];
-    load_row(x, i, xs);
-    load_row(y, i, ys);
+// xs is the x row in shared memory: step s reads its limb there, so the
+// 22 limbs need no registers of their own
+__device__ __forceinline__ void mont_mul_row(const int32_t *xs,
+                                             const int32_t (&ys)[kLimbs],
+                                             const Modulus &m,
+                                             int32_t (&r)[kLimbs]) {
+    int32_t p[kLimbs];
 #pragma unroll
     for (int j = 0; j < kLimbs; ++j) p[j] = m.p[j];
     const uint32_t p_inv_neg = (uint32_t)m.p_inv_neg;
@@ -152,21 +187,15 @@ mont_mul_kernel(const int32_t *__restrict__ x, const int32_t *__restrict__ y,
 #pragma unroll
     for (int j = 0; j < kLimbs + 2; ++j) full[j] = (int32_t)t[j];
     ripple<kLimbs + 2>(full);
-    int32_t r[kLimbs];
 #pragma unroll
     for (int j = 0; j < kLimbs; ++j) r[j] = full[j];
     cond_sub_p(r, p);
-    store_row(out, i, r);
 }
 
-__global__ void __launch_bounds__(kThreads)
-add_mod_kernel(const int32_t *__restrict__ x, const int32_t *__restrict__ y,
-               int32_t *__restrict__ out, int64_t n, Modulus m) {
-    const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-    if (i >= n) return;
-    int32_t xs[kLimbs], ys[kLimbs], p[kLimbs];
-    load_row(x, i, xs);
-    load_row(y, i, ys);
+__device__ __forceinline__ void add_mod_row(int32_t (&xs)[kLimbs],
+                                            const int32_t (&ys)[kLimbs],
+                                            const Modulus &m) {
+    int32_t p[kLimbs];
 #pragma unroll
     for (int j = 0; j < kLimbs; ++j) {
         p[j] = m.p[j];
@@ -174,17 +203,233 @@ add_mod_kernel(const int32_t *__restrict__ x, const int32_t *__restrict__ y,
     }
     ripple<kLimbs>(xs);
     cond_sub_p(xs, p);
-    store_row(out, i, xs);
+}
+
+// --- staging through shared memory -----------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void *p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// true where `words` int32 at `p` move as whole 16-byte units
+__device__ __forceinline__ bool vec_ok(const int32_t *p, int words) {
+    return ((reinterpret_cast<uintptr_t>(p) & 15) == 0) && ((words & 3) == 0);
+}
+
+// One operand's rows [r0, r0 + rows) into its tile by the block's threads:
+// one broadcast row (stride 0) as 22 words; else 16-byte words where the
+// tile allows them, coalesced 4-byte words where not. The caller
+// synchronises.
+__device__ __forceinline__ void stage_in(int32_t *tile,
+                                         const int32_t *__restrict__ src,
+                                         int64_t stride, int64_t r0,
+                                         int rows) {
+    if (stride == 0) {
+        if (threadIdx.x < kLimbs) tile[threadIdx.x] = __ldg(src + threadIdx.x);
+        return;
+    }
+    const int32_t *g = src + r0 * kLimbs;
+    const int words = rows * kLimbs;
+    if (vec_ok(g, words)) {
+        const int4 *g4 = reinterpret_cast<const int4 *>(g);
+        int4 *t4 = reinterpret_cast<int4 *>(tile);
+        for (int k = threadIdx.x; k < words / 4; k += kRows) t4[k] = __ldg(g4 + k);
+    } else {
+        for (int k = threadIdx.x; k < words; k += kRows) tile[k] = __ldg(g + k);
+    }
+}
+
+__device__ __forceinline__ void stage_out(int32_t *__restrict__ dst,
+                                          const int32_t *tile, int64_t r0,
+                                          int rows) {
+    int32_t *g = dst + r0 * kLimbs;
+    const int words = rows * kLimbs;
+    if (vec_ok(g, words)) {
+        int4 *g4 = reinterpret_cast<int4 *>(g);
+        const int4 *t4 = reinterpret_cast<const int4 *>(tile);
+        for (int k = threadIdx.x; k < words / 4; k += kRows) g4[k] = t4[k];
+    } else {
+        for (int k = threadIdx.x; k < words; k += kRows) g[k] = tile[k];
+    }
+}
+
+// a thread's row of a tile (row 0 of a broadcast tile), in 8-byte pieces:
+// conflict-free, since the 11-piece row stride is odd
+__device__ __forceinline__ void read_row(const int32_t *tile, int r,
+                                         int32_t (&v)[kLimbs]) {
+    const int2 *row = reinterpret_cast<const int2 *>(tile + r * kLimbs);
+#pragma unroll
+    for (int j = 0; j < kLimbs / 2; ++j) {
+        const int2 q = row[j];
+        v[2 * j] = q.x;
+        v[2 * j + 1] = q.y;
+    }
+}
+
+__device__ __forceinline__ void write_row(int32_t *tile, int r,
+                                          const int32_t (&v)[kLimbs]) {
+    int2 *row = reinterpret_cast<int2 *>(tile + r * kLimbs);
+#pragma unroll
+    for (int j = 0; j < kLimbs / 2; ++j) row[j] = make_int2(v[2 * j], v[2 * j + 1]);
+}
+
+// one bulk copy (TMA, no tensor map) of `bytes` into shared memory,
+// completing on the block's mbarrier
+__device__ __forceinline__ void bulk_in(int32_t *tile, const int32_t *g,
+                                        uint32_t bytes, uint64_t *bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(tile)),
+        "l"(g), "r"(bytes), "r"(smem_addr(bar))
+        : "memory");
+}
+
+// Stage x and y of this block's rows into xt and yt; on return every
+// thread may read both tiles. A tile that vec_ok allows comes in one bulk
+// copy issued by thread 0; the others come through stage_in.
+__device__ __forceinline__ void load_tiles(int32_t *xt, int32_t *yt,
+                                           const int32_t *__restrict__ x,
+                                           int64_t sx,
+                                           const int32_t *__restrict__ y,
+                                           int64_t sy, int64_t r0, int rows) {
+#if FIELD_THREAD_COPY
+    stage_in(xt, x, sx, r0, rows);
+    stage_in(yt, y, sy, r0, rows);
+    __syncthreads();
+#else
+    __shared__ __align__(8) uint64_t bar;
+    const int words = rows * kLimbs;
+    const uint32_t bytes = (uint32_t)words * 4u;
+    const int32_t *gx = x + r0 * kLimbs, *gy = y + r0 * kLimbs;
+    const bool bx = sx != 0 && vec_ok(gx, words);
+    const bool by = sy != 0 && vec_ok(gy, words);
+    const uint32_t b = smem_addr(&bar);
+    if (threadIdx.x == 0) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(b)
+                     : "memory");
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        asm volatile(
+            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
+            "r"(bytes * ((bx ? 1u : 0u) + (by ? 1u : 0u)))
+            : "memory");
+        if (bx) bulk_in(xt, gx, bytes, &bar);
+        if (by) bulk_in(yt, gy, bytes, &bar);
+    }
+    if (!bx) stage_in(xt, x, sx, r0, rows);
+    if (!by) stage_in(yt, y, sy, r0, rows);
+    __syncthreads();  // the barrier is initialised before anyone waits
+    uint32_t done = 0;
+    while (!done) {
+        asm volatile(
+            "{\n .reg .pred p;\n"
+            " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            " selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(b), "r"(0u)
+            : "memory");
+    }
+#endif
+}
+
+// Store the result tile (in xt, every thread's row written): one bulk copy
+// by thread 0 where vec_ok allows it, else through stage_out.
+__device__ __forceinline__ void store_tile(int32_t *__restrict__ out,
+                                           int32_t *xt, int64_t r0, int rows) {
+#if !FIELD_THREAD_COPY
+    const int words = rows * kLimbs;
+    int32_t *g = out + r0 * kLimbs;
+    if (vec_ok(g, words)) {
+        // the threads' writes to xt become visible to the bulk copy
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncthreads();
+        if (threadIdx.x == 0) {
+            asm volatile(
+                "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], "
+                "%2;\n" ::"l"(g),
+                "r"(smem_addr(xt)), "r"((uint32_t)words * 4u)
+                : "memory");
+            asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+            // xt stays allocated until the copy has read it
+            asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        }
+        return;
+    }
+#endif
+    __syncthreads();
+    stage_out(out, xt, r0, rows);
+}
+
+__global__ void __launch_bounds__(kRows, kMinBlocks)
+mont_mul_kernel(const int32_t *__restrict__ x, int64_t sx,
+                const int32_t *__restrict__ y, int64_t sy,
+                int32_t *__restrict__ out, int64_t n, Modulus m) {
+    __shared__ __align__(16) int32_t xt[kTileWords];
+    __shared__ __align__(16) int32_t yt[kTileWords];
+    const int64_t r0 = (int64_t)blockIdx.x * kRows;
+    const int rows = (int)(n - r0 < kRows ? n - r0 : kRows);
+    load_tiles(xt, yt, x, sx, y, sy, r0, rows);
+    const int r = threadIdx.x;
+    const bool live = r < rows;
+    int32_t res[kLimbs];
+    if (live) {
+        int32_t ys[kLimbs];
+        read_row(yt, sy ? r : 0, ys);
+        mont_mul_row(xt + (sx ? r : 0) * kLimbs, ys, m, res);
+    }
+    __syncthreads();  // every read of xt is done before it takes results
+    if (live) write_row(xt, r, res);
+    store_tile(out, xt, r0, rows);
+}
+
+__global__ void __launch_bounds__(kRows)
+add_mod_kernel(const int32_t *__restrict__ x, int64_t sx,
+               const int32_t *__restrict__ y, int64_t sy,
+               int32_t *__restrict__ out, int64_t n, Modulus m) {
+    __shared__ __align__(16) int32_t xt[kTileWords];
+    __shared__ __align__(16) int32_t yt[kTileWords];
+    const int64_t r0 = (int64_t)blockIdx.x * kRows;
+    const int rows = (int)(n - r0 < kRows ? n - r0 : kRows);
+    load_tiles(xt, yt, x, sx, y, sy, r0, rows);
+    const int r = threadIdx.x;
+    const bool live = r < rows;
+    int32_t xs[kLimbs];
+    if (live) {
+        int32_t ys[kLimbs];
+        read_row(xt, sx ? r : 0, xs);
+        read_row(yt, sy ? r : 0, ys);
+        add_mod_row(xs, ys, m);
+    }
+    __syncthreads();
+    if (live) write_row(xt, r, xs);
+    store_tile(out, xt, r0, rows);
+}
+
+// --- sub_mod: one thread per element, its own rows -------------------------
+
+__device__ __forceinline__ void load_row(const int32_t *__restrict__ src,
+                                         int64_t i, int32_t (&r)[kLimbs]) {
+    const int32_t *row = src + i;
+#pragma unroll
+    for (int j = 0; j < kLimbs; ++j) r[j] = __ldg(row + j);
+}
+
+__device__ __forceinline__ void store_row(int32_t *__restrict__ dst,
+                                          int64_t i,
+                                          const int32_t (&r)[kLimbs]) {
+    int32_t *row = dst + i * kLimbs;
+#pragma unroll
+    for (int j = 0; j < kLimbs; ++j) row[j] = r[j];
 }
 
 __global__ void __launch_bounds__(kThreads)
-sub_mod_kernel(const int32_t *__restrict__ x, const int32_t *__restrict__ y,
+sub_mod_kernel(const int32_t *__restrict__ x, int64_t sx,
+               const int32_t *__restrict__ y, int64_t sy,
                int32_t *__restrict__ out, int64_t n, Modulus m) {
     const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
     if (i >= n) return;
     int32_t xs[kLimbs], ys[kLimbs];
-    load_row(x, i, xs);
-    load_row(y, i, ys);
+    load_row(x, i * sx, xs);
+    load_row(y, i * sy, ys);
     const bool need_p = !geq(xs, ys);
 #pragma unroll
     for (int j = 0; j < kLimbs; ++j)
@@ -198,32 +443,36 @@ sub_mod_kernel(const int32_t *__restrict__ x, const int32_t *__restrict__ y,
 
 extern "C" {
 
-// op: 0 mont_mul, 1 add_mod, 2 sub_mod. x, y and out are contiguous
-// (n, 22) int32 arrays on the device; p_limbs is a host array of the
-// modulus's 22 limbs; p_inv_neg is read by mont_mul only.
-// Returns 0, a cudaError_t from the launch, or -1 for a bad argument.
-int field_launch(int op, const int32_t *x, const int32_t *y, int32_t *out,
-                 int64_t n, const int32_t *p_limbs, int32_t p_inv_neg,
-                 void *stream) {
+// op: 0 mont_mul, 1 add_mod, 2 sub_mod. x and y are (n, 22) int32 arrays
+// on the device with row strides sx and sy in int32 (22, or 0 for one
+// row broadcast to all n); out is a contiguous (n, 22) array; p_limbs is
+// a host array of the modulus's 22 limbs; p_inv_neg is read by mont_mul
+// only. Returns 0, a cudaError_t from the launch, or -1 for a bad
+// argument.
+int field_launch(int op, const int32_t *x, int64_t sx, const int32_t *y,
+                 int64_t sy, int32_t *out, int64_t n, const int32_t *p_limbs,
+                 int32_t p_inv_neg, void *stream) {
     if (n < 1 || p_limbs == nullptr) return -1;
-    const int64_t blocks = (n + kThreads - 1) / kThreads;
-    if (blocks > (int64_t)0x7fffffff) return -1;
+    if ((sx != 0 && sx != kLimbs) || (sy != 0 && sy != kLimbs)) return -1;
     Modulus m;
     for (int j = 0; j < kLimbs; ++j) m.p[j] = p_limbs[j];
     m.p_inv_neg = p_inv_neg;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int64_t tiles = (n + kRows - 1) / kRows;
+    const int64_t blocks = (n + kThreads - 1) / kThreads;
+    if (tiles > (int64_t)0x7fffffff) return -1;
     switch (op) {
         case 0:
-            mont_mul_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(x, y, out,
-                                                                  n, m);
+            mont_mul_kernel<<<(unsigned)tiles, kRows, 0, s>>>(x, sx, y, sy,
+                                                              out, n, m);
             break;
         case 1:
-            add_mod_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(x, y, out,
-                                                                 n, m);
+            add_mod_kernel<<<(unsigned)tiles, kRows, 0, s>>>(x, sx, y, sy,
+                                                             out, n, m);
             break;
         case 2:
-            sub_mod_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(x, y, out,
-                                                                 n, m);
+            sub_mod_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
+                x, sx, y, sy, out, n, m);
             break;
         default:
             return -1;

@@ -12,9 +12,15 @@ Field elements are rows of ``NUM_LIMBS`` little-endian limbs of
   launch each where the plain versions take dozens of torch launches.
 
 ``ctx`` is a ``fieldops.FieldCtx`` (its ``modulus``, ``p_limbs`` and
-``p_inv_neg``). The source's header says what bounds each kernel. It is
-compiled with ``nvcc`` for ``sm_90a`` into ``protocol_tpu_torch/build/``
-at the first launch and bound with ctypes.
+``p_inv_neg``). The source's header says what bounds each kernel and
+how ``mont_mul`` and ``add_mod`` stage their rows through shared memory
+(``TILE_ROWS`` rows a block). It is compiled with ``nvcc`` for
+``sm_90a`` into ``protocol_tpu_torch/build/`` at the first launch and
+bound with ctypes.
+
+An operand may be one row broadcast to every lane (stride ``(0, 1)``, as
+``fieldops.const_rows`` makes it): the kernels read that row as it is.
+Any other layout is made contiguous first.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises. There is no fallback between the two.
@@ -39,6 +45,7 @@ BASE = 1 << LIMB_BITS
 MASK = BASE - 1
 
 _SRC = Path(__file__).resolve().parents[2] / "csrc" / "field.cu"
+TILE_ROWS = 64  # rows of a mont_mul/add_mod block: kRows in field.cu
 _OPS = {"mont_mul": 0, "add_mod": 1, "sub_mod": 2}
 
 # launches of each CUDA kernel since the last reset_launches(): the proof
@@ -216,26 +223,35 @@ _PLAIN = {"mont_mul": mont_mul_plain, "add_mod": add_mod_plain,
 
 # --- the CUDA kernels -----------------------------------------------------------
 
-def build() -> Path:
-    """Compile the kernels (no-op when built); returns the library path."""
+def build(defines: tuple = ()) -> Path:
+    """Compile the kernels (no-op when built); returns the library path.
+    ``build_log`` of it holds ptxas's registers and spills per kernel.
+    ``defines`` (``-D`` flags) build the variants that
+    ``tools/torch_field_variants.py`` measures; the path uses none."""
     cmd = [_nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+           "-std=c++17", "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler",
+           "-fPIC", *defines]
     return build_shared_library("field", _SRC, cmd)
+
+
+def bind(path: Path) -> ctypes.CDLL:
+    """Load a built field library and declare its C interface."""
+    lib = ctypes.CDLL(str(path))
+    lib.field_launch.argtypes = [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_int32, ctypes.c_void_p]
+    lib.field_launch.restype = ctypes.c_int
+    lib.field_error_string.argtypes = [ctypes.c_int]
+    lib.field_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def _load():
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.field_launch.argtypes = [
-                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                ctypes.c_int32, ctypes.c_void_p]
-            lib.field_launch.restype = ctypes.c_int
-            lib.field_error_string.argtypes = [ctypes.c_int]
-            lib.field_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = bind(build())
         return _lib
 
 
@@ -247,7 +263,19 @@ def _c_limbs(ctx):
     return arr
 
 
-def _launch(name: str, x: torch.Tensor, y: torch.Tensor, ctx) -> torch.Tensor:
+def _rows_of(t: torch.Tensor) -> tuple:
+    """(t, its row stride in int32) as the kernels take it: 0 for one row
+    broadcast to every lane (``fieldops.const_rows``), read as it is;
+    else a contiguous copy where t is not contiguous already."""
+    if t.stride() == (0, 1):
+        return t, 0
+    return t.contiguous(), NUM_LIMBS
+
+
+def _launch(name: str, x: torch.Tensor, y: torch.Tensor, ctx,
+            lib=None) -> torch.Tensor:
+    # lib: a variant build (bind(build(defines))) for
+    # tools/torch_field_variants.py; the path passes none
     if x.dim() != 2 or x.shape[1] != NUM_LIMBS:
         raise ValueError(f"{name}: x must be (n, {NUM_LIMBS}), got "
                          f"{tuple(x.shape)}")
@@ -263,18 +291,18 @@ def _launch(name: str, x: torch.Tensor, y: torch.Tensor, ctx) -> torch.Tensor:
         return _PLAIN[name](x, y, ctx)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    x = x.contiguous()
-    y = y.contiguous()
-    out = torch.empty_like(x)
+    x, sx = _rows_of(x)
+    y, sy = _rows_of(y)
     n = x.shape[0]
+    out = torch.empty((n, NUM_LIMBS), dtype=torch.int32, device=x.device)
     if n == 0:
         return out
-    lib = _load()
+    lib = lib or _load()
     # switching devices costs a few µs a call: only when the tensors are
     # not on the current one
     same = x.device.index in (None, torch.cuda.current_device())
     with contextlib.nullcontext() if same else torch.cuda.device(x.device):
-        rc = lib.field_launch(_OPS[name], x.data_ptr(), y.data_ptr(),
+        rc = lib.field_launch(_OPS[name], x.data_ptr(), sx, y.data_ptr(), sy,
                               out.data_ptr(), n, _c_limbs(ctx),
                               ctx.p_inv_neg,
                               torch.cuda.current_stream().cuda_stream)

@@ -177,4 +177,5 @@ def test_concurrent_builds_share_one_library(tmp_path):
         outs.append(out.strip())
     assert len(set(outs)) == 1
     left = sorted(f.name for f in (tmp_path / "build").iterdir())
-    assert left == [".probe.lock", Path(outs[0]).name]  # no temp files
+    lib = Path(outs[0])  # no temp files; the compiler's log beside it
+    assert left == [".probe.lock", lib.with_suffix(".log").name, lib.name]

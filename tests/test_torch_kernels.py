@@ -145,17 +145,46 @@ def test_field_kernels_refuse_bad_input(name, kernel, plain):
         kernel(x.to("meta"), x.to("meta"), ctx)
 
 
+def _operand_forms(n):
+    """Operand forms of n rows cut from n + 3: views 88 and 264 bytes
+    into their storage (off a 16-byte boundary on the card), and one row
+    broadcast to all n on either side (stride (0, 1))."""
+    return {"offset": (lambda t: t[1:n + 1], lambda t: t[3:n + 3]),
+            "broadcast_x": (lambda t: t[5].expand(n, fo.NUM_LIMBS),
+                            lambda t: t[:n]),
+            "broadcast_y": (lambda t: t[:n],
+                            lambda t: t[2].expand(n, fo.NUM_LIMBS))}
+
+
+def test_field_kernels_on_cpu_take_offset_and_broadcast_operands():
+    """On the CPU a view or a broadcast row goes to the plain version as
+    it is, with the result of its contiguous copy and no launch."""
+    ctx = fo.FieldCtx(BN254_FR_MODULUS)
+    n = 40
+    x, xc, y = _field_rows(ctx.modulus, n + 3, 2)
+    before = dict(fk.LAUNCHES)
+    for form, (fx, fy) in _operand_forms(n).items():
+        for name, kernel, plain in _FIELD:
+            xin = fx(x if name == "mont_mul" else xc)
+            yin = fy(y)
+            want = plain(xin.contiguous(), yin.contiguous(), ctx)
+            assert torch.equal(kernel(xin, yin, ctx), want), (name, form)
+    assert fk.LAUNCHES == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("p", _MODULI)
 def test_field_kernels_match_plain(p):
     """Each field kernel, bit-exact against its plain version on the
     card (edge values, lazy x for the multiply, n below, at and past one
-    128-thread block), one count per launch; strided views are copied,
+    64-row tile of mont_mul/add_mod, two tiles and one, and one 128-thread
+    block of sub_mod), one count per launch; strided views are copied,
     not refused."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     ctx = fo.FieldCtx(p)
-    for n in (1, 127, 128, 129, 1000):
+    r = fk.TILE_ROWS
+    for n in (1, r - 1, r, r + 1, 2 * r + 1, 127, 128, 1000):
         x, xc, y = (t.cuda() for t in _field_rows(p, n, n))
         for name, kernel, plain in _FIELD:
             xin = x if name == "mont_mul" else xc
@@ -167,3 +196,46 @@ def test_field_kernels_match_plain(p):
     y_t = y.t().contiguous().t()  # same values, column-major strides
     assert not y_t.is_contiguous()
     assert torch.equal(fk.mont_mul(x, y_t, ctx), fk.mont_mul_plain(x, y, ctx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", _MODULI)
+def test_field_kernels_take_offset_and_broadcast_operands(p):
+    """Views off a 16-byte boundary (``x[1:]``, ``y[3:]``) and one row
+    broadcast on either side (row stride 0) launch the kernels as they
+    are, over a ragged last tile, bit-exact against the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    ctx = fo.FieldCtx(p)
+    n = 2 * fk.TILE_ROWS + 1
+    x, xc, y = (t.cuda() for t in _field_rows(p, n + 3, 7))
+    for form, (fx, fy) in _operand_forms(n).items():
+        for name, kernel, plain in _FIELD:
+            xin = fx(x if name == "mont_mul" else xc)
+            yin = fy(y)
+            if form == "offset":
+                assert xin.data_ptr() % 16 and yin.data_ptr() % 16
+            before = fk.LAUNCHES[name]
+            got = kernel(xin, yin, ctx)
+            torch.cuda.synchronize()
+            assert fk.LAUNCHES[name] == before + 1
+            assert torch.equal(got, plain(xin, yin, ctx)), (name, form)
+
+
+@pytest.mark.cuda
+def test_field_kernels_at_the_mds_width():
+    """819,200 lanes, the width of the Poseidon MDS step's multiply:
+    every kernel bit-exact against its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    ctx = fo.FieldCtx(BN254_FR_MODULUS)
+    rng = np.random.default_rng(8)
+    x, y = (torch.from_numpy(rng.integers(0, fk.BASE, (819_200, fo.NUM_LIMBS),
+                                          dtype=np.int32)).cuda()
+            for _ in range(2))
+    x[:, -1] = 0  # canonical: below 2^252 < p
+    y[:, -1] = 0
+    for name, kernel, plain in _FIELD:
+        got = kernel(x, y, ctx)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain(x, y, ctx)), name

@@ -11,8 +11,9 @@ to ``--lanes``, and runs one chunk of each device stage of
 ``torch.profiler``. Prints one JSON line per stage: host wall time,
 device busy time (the union of kernel intervals), the device's idle
 share of the window, launches of each field kernel, the host seconds of
-the recovery's limb prep and GLV split, and device time per kernel name.
-Needs a CUDA device; imports nothing of JAX or ``protocol_tpu``.
+the recovery's limb prep and GLV split, device time and events per
+kernel name, and the copy events (``copy_events``). Needs a CUDA
+device; imports nothing of JAX or ``protocol_tpu``.
 """
 
 from __future__ import annotations

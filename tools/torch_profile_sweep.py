@@ -41,9 +41,10 @@ def _union_us(intervals) -> float:
 def profile(run, repeats: int = 1, warmup: int = 1, reset=None) -> dict:
     """Calls ``run()`` ``warmup`` times, then ``reset()`` if given, then
     ``repeats`` times under ``torch.profiler``. Returns, per repeat, the
-    host wall time, the device busy time (the union of kernel intervals)
-    and device time per kernel name, and the device's idle share of the
-    profiled window. Shared with ``torch_profile_ingest.py``."""
+    host wall time, the device busy time (the union of kernel intervals),
+    device time and events per kernel name, the copy events, and the
+    device's idle share of the profiled window. Shared with
+    ``torch_profile_ingest.py``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -63,8 +64,10 @@ def profile(run, repeats: int = 1, warmup: int = 1, reset=None) -> dict:
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     by_name = defaultdict(float)
+    count = defaultdict(int)
     for e in kernels:
         by_name[e.name] += e.time_range.elapsed_us()
+        count[e.name] += 1
     busy_us = _union_us((e.time_range.start, e.time_range.end)
                         for e in kernels)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
@@ -75,6 +78,11 @@ def profile(run, repeats: int = 1, warmup: int = 1, reset=None) -> dict:
         "device_busy_ms": busy_us / repeats / 1e3,
         "device_idle_share": (1.0 - busy_us / wall_us) if kernels else None,
         "kernels_ms": {k[:120]: v / repeats / 1e3 for k, v in top},
+        # copies and memcpys: what a strided or broadcast operand costs
+        "copy_events": sum(c for k, c in count.items()
+                           if "copy" in k.lower()) / repeats,
+        "events_by_name": {k[:120]: c / repeats for k, c in sorted(
+            count.items(), key=lambda kv: -kv[1])[:12]},
     }
 
 
