@@ -68,8 +68,13 @@ INT_MULADD_PER_CLK_PER_SM = 64
 # (128), an ingest chunk, N = 512's products and the Poseidon MDS step
 FIELD_SIZES = (1, 63, 64, 65, 127, 128, 129, 32_768, 262_144, 819_200)
 FIELD_SAMPLE = 1000            # lanes per case checked against Python ints
-# (lanes, launches per CUDA graph) of the field kernels' device times
-FIELD_TIME_SIZES = ((32_768, 400), (262_144, 100), (819_200, 40))
+# (lanes, launches per CUDA graph) of the field kernels' device times: one
+# row (a launch's fixed cost), an ingest chunk, N = 512's products and
+# the Poseidon MDS step
+FIELD_TIME_SIZES = ((1, 400), (32_768, 400), (262_144, 100), (819_200, 40))
+# input bytes a timed graph cycles through: five times the H100's 50 MB
+# L2, so every launch reads its operands from device memory
+FIELD_COLD_BYTES = 256 << 20
 FIELD_MAX_REGISTERS = 64       # mont_mul's budget, with no spills
 # field-kernel launches per 32,768-lane ingest chunk (hash and recovery)
 FIELD_LAUNCHES_PER_CHUNK = {"mont_mul": 5449, "add_mod": 2568,
@@ -120,22 +125,29 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return a.elapsed_time(b) / iters
 
 
-def graph_ms(fn, launches: int, replays: int = 5) -> float:
+def graph_ms(fn, launches: int, replays: int = 5,
+             profiled: bool = False) -> dict:
     """Device time of one call of ``fn`` without the host's pacing:
-    ``launches`` calls captured in one CUDA graph, the median of
-    ``replays`` replays divided by ``launches``."""
+    ``fn(i)`` for i in range(launches) captured in one CUDA graph, the
+    median of ``replays`` replays divided by ``launches`` (``ms``). The
+    graph keeps every call's result, so each launch writes memory of its
+    own; an ``fn`` whose inputs cycle through more than the L2 holds is
+    timed from device memory, not from the cache. ``profiled`` adds the
+    profiler's view of one more replay: the mean duration of its kernels
+    (``kernel_ms``, without the gaps between launches) and their count."""
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm up off the capture
-        for _ in range(3):
-            fn()
+        for i in range(3):
+            fn(i)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(launches):
-            fn()
+        results = [fn(i) for i in range(launches)]
     graph.replay()
     times = []
     for _ in range(replays):
@@ -146,7 +158,17 @@ def graph_ms(fn, launches: int, replays: int = 5) -> float:
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b) / launches)
-    return sorted(times)[replays // 2]
+    out = {"ms": sorted(times)[replays // 2]}
+    if profiled:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            graph.replay()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+        out["kernel_ms"] = sum(us) / len(us) / 1e3 if us else None
+        out["kernel_events"] = len(us)
+    del results, graph
+    return out
 
 
 def ptxas_usage(log: str) -> dict:
@@ -615,8 +637,12 @@ def _int_rate() -> tuple:
 def phase_field_times(device) -> dict:
     """Each field kernel at the path's lane counts: an ingest chunk
     (32,768), N = 512's products (262,144) and the Poseidon MDS step
-    (819,200). Device ms per launch from CUDA-graph replay, beside the
-    host-paced back-to-back ms, the plain version and the bound."""
+    (819,200), and at one row, its fixed cost. Device ms per launch from
+    CUDA-graph replay with the operands cycling through copies that
+    outgrow the L2 (``ms``, held against the bound; the profiler's
+    kernel duration beside it) and with the same operands every launch
+    (``same_inputs_ms``, L2-warm), beside the host-paced back-to-back ms
+    and the plain version."""
     import torch
 
     from protocol_tpu_torch.ops import fieldops as fo
@@ -635,14 +661,25 @@ def phase_field_times(device) -> dict:
                          device)
         y = fo.to_device([rng.getrandbits(256) % P_FR for _ in range(n)],
                          device)
+        sets = min(launches,
+                   max(2, -(-FIELD_COLD_BYTES // (2 * x.numel() * 4))))
+        xs = [x] + [x.clone() for _ in range(sets - 1)]
+        ys = [y] + [y.clone() for _ in range(sets - 1)]
         for name, (kernel, plain, ops_per_lane) in kernels.items():
             nbytes = n * 3 * fo.NUM_LIMBS * 4  # x, y read; out written
             ops = n * ops_per_lane
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = ops / int_rate * 1e3
-            ms = graph_ms(lambda: kernel(x, y, ctx), launches)
+            cold = graph_ms(
+                lambda i: kernel(xs[i % sets], ys[i % sets], ctx), launches,
+                profiled=True)
+            ms = cold["ms"]
             out[(name, n)] = {
-                "kernel": name, "n": n, "ms": ms,
+                "kernel": name, "n": n, "ms": ms, "operand_sets": sets,
+                "profiler_kernel_ms": cold["kernel_ms"],
+                "profiler_events": cold["kernel_events"],
+                "same_inputs_ms": graph_ms(lambda i: kernel(x, y, ctx),
+                                           launches)["ms"],
                 "back_to_back_ms": cuda_ms(lambda: kernel(x, y, ctx),
                                            launches),
                 "plain_ms": cuda_ms(lambda: plain(x, y, ctx),
@@ -654,7 +691,7 @@ def phase_field_times(device) -> dict:
                 "share_of_bound": max(bytes_ms, ops_ms) / ms,
                 "library_ms": None,
             }
-        del x, y
+        del x, y, xs, ys
         control = out[("sub_mod", n)]["ms"]
         for name in kernels:
             rec = out[(name, n)]

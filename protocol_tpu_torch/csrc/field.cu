@@ -56,26 +56,27 @@
 // 5,632 contiguous bytes in device memory, and it comes into shared
 // memory in one bulk copy (cp.async.bulk, the TMA's 1-D form), issued by
 // thread 0 and completing on an mbarrier; the result tile goes back the
-// same way. Each thread reads its row from shared memory in 8-byte
-// pieces: the row stride of 11 such pieces is odd, so the 16 threads of
-// each half-warp phase touch 32 distinct banks, with no conflict (a
-// 4-byte read of a 22-word stride would conflict 2-way, gcd(22, 32) = 2).
-// mont_mul reads each x limb from shared memory in its CIOS step, which
-// with __launch_bounds__(64, 16) keeps it at 64 registers with no
-// spills. The arithmetic is the same as before, step for step; each
-// result row goes back into the x tile. A tile whose address or length is
-// not a multiple of 16 bytes (the ragged last tile of an odd row count;
-// a view such as x[1:], 88 bytes into its storage) moves as coalesced
-// 4-byte words by the threads instead, in the same kernel: the path is
-// chosen per tile from the pointer and the rows. An operand whose rows
-// are all one broadcast row (row stride 0, as fieldops.const_rows makes
-// them) is read once per block: 22 words into shared memory, which
-// every thread then reads as a broadcast. The bulk copy beat 16-byte
-// words moved by the threads (FIELD_THREAD_COPY) for mont_mul and
-// matched them for add_mod; 64-row tiles beat 128-row ones (FIELD_ROWS)
-// at 32,768 lanes, where the recovery ladder runs them, and came within a
-// few per cent at the larger sizes. tools/torch_field_variants.py
-// measures the three builds; PERF.md has the numbers.
+// same way. Each thread reads its rows from shared memory in 8-byte
+// pieces (read_row; mont_mul's x limbs two at a time, one piece every
+// two CIOS steps): the row stride of 11 such pieces is odd, so the 16
+// threads of each half-warp phase touch 32 distinct banks, with no
+// conflict (a 4-byte read of a 22-word stride would conflict 2-way,
+// gcd(22, 32) = 2). mont_mul reads its x limbs from shared memory inside
+// the CIOS steps rather than holding all 22 in registers, which with
+// __launch_bounds__(64, 16) keeps it at 64 registers with no spills. The
+// arithmetic is the same as before, step for step; each result row goes
+// back into the x tile. A tile whose address or length is not a multiple
+// of 16 bytes (the ragged last tile of an odd row count; a view such as
+// x[1:], 88 bytes into its storage) moves as coalesced 4-byte words by
+// the threads instead, in the same kernel: the path is chosen per tile
+// from the pointer and the rows. An operand whose rows are all one
+// broadcast row (row stride 0, as fieldops.const_rows makes them) is
+// read once per block: 22 words into shared memory, which every thread
+// then reads as a broadcast. The bulk copy beat 16-byte words moved by
+// the threads for mont_mul and matched them for add_mod; 64-row tiles
+// beat 128-row ones at 32,768 lanes, where the recovery ladder runs
+// them, and came within a few per cent at the larger sizes (PERF.md has
+// the numbers).
 //
 // sub_mod keeps the first design, one thread per element reading and
 // writing its own 88-byte row with 4-byte loads (row stride 0 or 22):
@@ -92,22 +93,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// Build-time variants, for tools/torch_field_variants.py to measure the
-// design against its alternatives; the defaults are the design.
-#ifndef FIELD_ROWS
-#define FIELD_ROWS 64  // rows (and threads) of a staged block: 64 or 128
-#endif
-#ifndef FIELD_THREAD_COPY
-#define FIELD_THREAD_COPY 0  // 1: threads move 16-byte words, no bulk copy
-#endif
-
 namespace {
 
 constexpr int kBits = 12;
 constexpr int kLimbs = 22;
 constexpr int32_t kMask = (1 << kBits) - 1;
 constexpr int kThreads = 128;  // sub_mod's block
-constexpr int kRows = FIELD_ROWS;
+constexpr int kRows = 64;  // rows (and threads) of a staged block
 constexpr int kTileWords = kRows * kLimbs;
 // blocks per SM that mont_mul must fit: 64 registers a thread at most
 constexpr int kMinBlocks = 65536 / (64 * kRows);
@@ -154,8 +146,28 @@ __device__ __forceinline__ void cond_sub_p(int32_t (&t)[kLimbs],
     ripple<kLimbs>(t);
 }
 
-// xs is the x row in shared memory: step s reads its limb there, so the
-// 22 limbs need no registers of their own
+// one CIOS step: t ← (t + xi·y + u·p) / 2^12, u making the sum ≡ 0 mod 2^12
+__device__ __forceinline__ void cios_step(uint32_t (&t)[kLimbs + 2],
+                                          uint32_t xi,
+                                          const int32_t (&ys)[kLimbs],
+                                          const int32_t (&p)[kLimbs],
+                                          uint32_t p_inv_neg) {
+#pragma unroll
+    for (int j = 0; j < kLimbs; ++j) t[j] += xi * (uint32_t)ys[j];
+    const uint32_t u = ((t[0] & kMask) * p_inv_neg) & kMask;
+#pragma unroll
+    for (int j = 0; j < kLimbs; ++j) t[j] += u * (uint32_t)p[j];
+    // t ≡ 0 mod 2^12 now: shift one limb down, keeping the carry
+    const uint32_t carry0 = (uint32_t)((int32_t)t[0] >> kBits);
+#pragma unroll
+    for (int j = 0; j < kLimbs + 1; ++j) t[j] = t[j + 1];
+    t[kLimbs + 1] = 0;
+    t[0] += carry0;
+}
+
+// xs is the x row in shared memory: steps 2k and 2k + 1 take their limbs
+// from its k-th 8-byte piece, so the 22 limbs need no registers of their
+// own and the reads are conflict-free
 __device__ __forceinline__ void mont_mul_row(const int32_t *xs,
                                              const int32_t (&ys)[kLimbs],
                                              const Modulus &m,
@@ -164,24 +176,16 @@ __device__ __forceinline__ void mont_mul_row(const int32_t *xs,
 #pragma unroll
     for (int j = 0; j < kLimbs; ++j) p[j] = m.p[j];
     const uint32_t p_inv_neg = (uint32_t)m.p_inv_neg;
+    const int2 *x2 = reinterpret_cast<const int2 *>(xs);
 
     uint32_t t[kLimbs + 2];
 #pragma unroll
     for (int j = 0; j < kLimbs + 2; ++j) t[j] = 0;
 #pragma unroll
-    for (int s = 0; s < kLimbs; ++s) {
-        const uint32_t xi = (uint32_t)xs[s];
-#pragma unroll
-        for (int j = 0; j < kLimbs; ++j) t[j] += xi * (uint32_t)ys[j];
-        const uint32_t u = ((t[0] & kMask) * p_inv_neg) & kMask;
-#pragma unroll
-        for (int j = 0; j < kLimbs; ++j) t[j] += u * (uint32_t)p[j];
-        // t ≡ 0 mod 2^12 now: shift one limb down, keeping the carry
-        const uint32_t carry0 = (uint32_t)((int32_t)t[0] >> kBits);
-#pragma unroll
-        for (int j = 0; j < kLimbs + 1; ++j) t[j] = t[j + 1];
-        t[kLimbs + 1] = 0;
-        t[0] += carry0;
+    for (int k = 0; k < kLimbs / 2; ++k) {
+        const int2 q = x2[k];
+        cios_step(t, (uint32_t)q.x, ys, p, p_inv_neg);
+        cios_step(t, (uint32_t)q.y, ys, p, p_inv_neg);
     }
     int32_t full[kLimbs + 2];
 #pragma unroll
@@ -216,10 +220,9 @@ __device__ __forceinline__ bool vec_ok(const int32_t *p, int words) {
     return ((reinterpret_cast<uintptr_t>(p) & 15) == 0) && ((words & 3) == 0);
 }
 
-// One operand's rows [r0, r0 + rows) into its tile by the block's threads:
-// one broadcast row (stride 0) as 22 words; else 16-byte words where the
-// tile allows them, coalesced 4-byte words where not. The caller
-// synchronises.
+// One operand's rows [r0, r0 + rows) into its tile by the block's threads,
+// for a tile the bulk copy cannot take: one broadcast row (stride 0) as
+// 22 words, else coalesced 4-byte words. The caller synchronises.
 __device__ __forceinline__ void stage_in(int32_t *tile,
                                          const int32_t *__restrict__ src,
                                          int64_t stride, int64_t r0,
@@ -230,27 +233,17 @@ __device__ __forceinline__ void stage_in(int32_t *tile,
     }
     const int32_t *g = src + r0 * kLimbs;
     const int words = rows * kLimbs;
-    if (vec_ok(g, words)) {
-        const int4 *g4 = reinterpret_cast<const int4 *>(g);
-        int4 *t4 = reinterpret_cast<int4 *>(tile);
-        for (int k = threadIdx.x; k < words / 4; k += kRows) t4[k] = __ldg(g4 + k);
-    } else {
-        for (int k = threadIdx.x; k < words; k += kRows) tile[k] = __ldg(g + k);
-    }
+    for (int k = threadIdx.x; k < words; k += kRows) tile[k] = __ldg(g + k);
 }
 
+// the result tile out as coalesced 4-byte words, where the bulk copy
+// cannot take it
 __device__ __forceinline__ void stage_out(int32_t *__restrict__ dst,
                                           const int32_t *tile, int64_t r0,
                                           int rows) {
     int32_t *g = dst + r0 * kLimbs;
     const int words = rows * kLimbs;
-    if (vec_ok(g, words)) {
-        int4 *g4 = reinterpret_cast<int4 *>(g);
-        const int4 *t4 = reinterpret_cast<const int4 *>(tile);
-        for (int k = threadIdx.x; k < words / 4; k += kRows) g4[k] = t4[k];
-    } else {
-        for (int k = threadIdx.x; k < words; k += kRows) g[k] = tile[k];
-    }
+    for (int k = threadIdx.x; k < words; k += kRows) g[k] = tile[k];
 }
 
 // a thread's row of a tile (row 0 of a broadcast tile), in 8-byte pieces:
@@ -292,11 +285,6 @@ __device__ __forceinline__ void load_tiles(int32_t *xt, int32_t *yt,
                                            int64_t sx,
                                            const int32_t *__restrict__ y,
                                            int64_t sy, int64_t r0, int rows) {
-#if FIELD_THREAD_COPY
-    stage_in(xt, x, sx, r0, rows);
-    stage_in(yt, y, sy, r0, rows);
-    __syncthreads();
-#else
     __shared__ __align__(8) uint64_t bar;
     const int words = rows * kLimbs;
     const uint32_t bytes = (uint32_t)words * 4u;
@@ -328,14 +316,12 @@ __device__ __forceinline__ void load_tiles(int32_t *xt, int32_t *yt,
             : "r"(b), "r"(0u)
             : "memory");
     }
-#endif
 }
 
 // Store the result tile (in xt, every thread's row written): one bulk copy
 // by thread 0 where vec_ok allows it, else through stage_out.
 __device__ __forceinline__ void store_tile(int32_t *__restrict__ out,
                                            int32_t *xt, int64_t r0, int rows) {
-#if !FIELD_THREAD_COPY
     const int words = rows * kLimbs;
     int32_t *g = out + r0 * kLimbs;
     if (vec_ok(g, words)) {
@@ -354,7 +340,6 @@ __device__ __forceinline__ void store_tile(int32_t *__restrict__ out,
         }
         return;
     }
-#endif
     __syncthreads();
     stage_out(out, xt, r0, rows);
 }

@@ -223,35 +223,29 @@ _PLAIN = {"mont_mul": mont_mul_plain, "add_mod": add_mod_plain,
 
 # --- the CUDA kernels -----------------------------------------------------------
 
-def build(defines: tuple = ()) -> Path:
+def build() -> Path:
     """Compile the kernels (no-op when built); returns the library path.
-    ``build_log`` of it holds ptxas's registers and spills per kernel.
-    ``defines`` (``-D`` flags) build the variants that
-    ``tools/torch_field_variants.py`` measures; the path uses none."""
+    ``build_log`` of it holds ptxas's registers and spills per kernel."""
     cmd = [_nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
            "-std=c++17", "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler",
-           "-fPIC", *defines]
+           "-fPIC"]
     return build_shared_library("field", _SRC, cmd)
-
-
-def bind(path: Path) -> ctypes.CDLL:
-    """Load a built field library and declare its C interface."""
-    lib = ctypes.CDLL(str(path))
-    lib.field_launch.argtypes = [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-        ctypes.c_int32, ctypes.c_void_p]
-    lib.field_launch.restype = ctypes.c_int
-    lib.field_error_string.argtypes = [ctypes.c_int]
-    lib.field_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def _load():
     global _lib
     with _lock:
         if _lib is None:
-            _lib = bind(build())
+            lib = ctypes.CDLL(str(build()))
+            lib.field_launch.argtypes = [
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                ctypes.c_int64, ctypes.c_void_p, ctypes.c_int32,
+                ctypes.c_void_p]
+            lib.field_launch.restype = ctypes.c_int
+            lib.field_error_string.argtypes = [ctypes.c_int]
+            lib.field_error_string.restype = ctypes.c_char_p
+            _lib = lib
         return _lib
 
 
@@ -272,10 +266,7 @@ def _rows_of(t: torch.Tensor) -> tuple:
     return t.contiguous(), NUM_LIMBS
 
 
-def _launch(name: str, x: torch.Tensor, y: torch.Tensor, ctx,
-            lib=None) -> torch.Tensor:
-    # lib: a variant build (bind(build(defines))) for
-    # tools/torch_field_variants.py; the path passes none
+def _launch(name: str, x: torch.Tensor, y: torch.Tensor, ctx) -> torch.Tensor:
     if x.dim() != 2 or x.shape[1] != NUM_LIMBS:
         raise ValueError(f"{name}: x must be (n, {NUM_LIMBS}), got "
                          f"{tuple(x.shape)}")
@@ -297,7 +288,7 @@ def _launch(name: str, x: torch.Tensor, y: torch.Tensor, ctx,
     out = torch.empty((n, NUM_LIMBS), dtype=torch.int32, device=x.device)
     if n == 0:
         return out
-    lib = lib or _load()
+    lib = _load()
     # switching devices costs a few µs a call: only when the tensors are
     # not on the current one
     same = x.device.index in (None, torch.cuda.current_device())
