@@ -74,7 +74,7 @@ FIELD_SAMPLE = 1000            # lanes per case checked against Python ints
 FIELD_TIME_SIZES = ((1, 400), (32_768, 400), (262_144, 100), (819_200, 40))
 # input bytes a timed graph cycles through: five times the H100's 50 MB
 # L2, so every launch reads its operands from device memory
-FIELD_COLD_BYTES = 256 << 20
+COLD_BYTES = 256 << 20
 FIELD_MAX_REGISTERS = 64       # mont_mul's budget, with no spills
 # field-kernel launches per 32,768-lane ingest chunk (hash and recovery)
 FIELD_LAUNCHES_PER_CHUNK = {"mont_mul": 5449, "add_mod": 2568,
@@ -276,30 +276,59 @@ def phase_kernel_vs_plain(device) -> float:
 
 
 def phase_kernel_times(device) -> dict:
-    """Kernel, plain version and torch.gather at the main path's shapes
-    (float32): T = 262,144 rows (edge route) and 8,192 (state route)."""
+    """The lane-permutation stage at the main path's shapes (float32):
+    T = 262,144 rows (edge route) and 8,192 (state route), each as the
+    route's first stage, whose transpose is ``(1, T, 128) → (1, 128, T)``.
+    Device ms per launch by CUDA-graph replay with the operands cycling
+    through copies that outgrow the L2: the kernel, its plain version,
+    ``torch.gather`` and the pair the first stage runs in torch
+    (``torch.gather`` then ``.transpose(1, 2).contiguous()``), and the
+    kernel followed by that transpose; the kernel with the same operands
+    every launch (L2-warm) and back to back (host-paced) beside them."""
     import torch
 
     from protocol_tpu_torch.ops.kernels import lane_perm, lane_perm_plain
 
     g = torch.Generator(device=device).manual_seed(2)
     rows = {}
-    for T, iters in ((262_144, 50), (8192, 200)):
-        x = torch.randn(T, 128, device=device, generator=g)
-        idx = torch.randint(0, 128, (T, 128), device=device, generator=g,
-                            dtype=torch.uint8)
-        idx64 = idx.long()
+    for T, launches in ((262_144, 20), (8192, 200)):
+        set_bytes = T * 128 * (4 + 1 + 8)  # x, idx and its int64 copy
+        sets = min(launches, max(2, -(-COLD_BYTES // set_bytes)))
+        xs = [torch.randn(T, 128, device=device, generator=g)
+              for _ in range(sets)]
+        idxs = [torch.randint(0, 128, (T, 128), device=device, generator=g,
+                              dtype=torch.uint8) for _ in range(sets)]
+        idx64s = [i.long() for i in idxs]
+
+        def cold(fn):
+            return graph_ms(lambda i: fn(xs[i % sets], idxs[i % sets],
+                                         idx64s[i % sets]), launches)["ms"]
+
+        def transposed(y):
+            return y.view(1, T, 128).transpose(1, 2).contiguous()
+
         nbytes = T * 128 * (4 + 1 + 4)  # x read, idx read, out written
-        rows[T] = {
-            "T": T,
-            "ms": cuda_ms(lambda: lane_perm(x, idx), iters),
-            "plain_ms": cuda_ms(lambda: lane_perm_plain(x, idx), iters),
-            "library_ms": cuda_ms(lambda: torch.gather(x, 1, idx64), iters),
+        rec = {
+            "T": T, "m": T, "operand_sets": sets, "graph_launches": launches,
+            "ms": cold(lambda x, i, i64: lane_perm(x, i)),
+            "plain_ms": cold(lambda x, i, i64: lane_perm_plain(x, i)),
+            "library_ms": cold(lambda x, i, i64: torch.gather(x, 1, i64)),
+            "gather_transpose_ms": cold(
+                lambda x, i, i64: transposed(torch.gather(x, 1, i64))),
+            "kernel_transpose_ms": cold(
+                lambda x, i, i64: transposed(lane_perm(x, i))),
+            "same_inputs_ms": graph_ms(lambda i: lane_perm(xs[0], idxs[0]),
+                                       launches)["ms"],
+            "back_to_back_ms": cuda_ms(lambda: lane_perm(xs[0], idxs[0]),
+                                       launches),
             "bytes": nbytes,
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
         }
-        rows[T]["achieved_GBps"] = nbytes / rows[T]["ms"] / 1e6
-        emit("kernel_times", **rows[T], dtype="float32")
+        rec["achieved_GBps"] = nbytes / rec["ms"] / 1e6
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        emit("kernel_times", **rec, dtype="float32")
+        rows[T] = rec
+        del xs, idxs, idx64s
     return rows
 
 
@@ -662,7 +691,7 @@ def phase_field_times(device) -> dict:
         y = fo.to_device([rng.getrandbits(256) % P_FR for _ in range(n)],
                          device)
         sets = min(launches,
-                   max(2, -(-FIELD_COLD_BYTES // (2 * x.numel() * 4))))
+                   max(2, -(-COLD_BYTES // (2 * x.numel() * 4))))
         xs = [x] + [x.clone() for _ in range(sets - 1)]
         ys = [y] + [y.clone() for _ in range(sets - 1)]
         for name, (kernel, plain, ops_per_lane) in kernels.items():
