@@ -4,21 +4,26 @@
     python3 chip_smoke.py
 
 Run from the root of the repository, on a machine with a CUDA card. It
-builds the port's kernel (nvcc) and Clos planner (g++) from the sources
-in the checkout, holds the lane-permutation kernel bit for bit against
-its plain PyTorch version, times it beside its memory bound, its plain
-version and ``torch.gather``, then runs the Clos-routed EigenTrust
-converge at 1M peers (Barabási–Albert, m=8, seed 0, both directions
-attested: the repo's converge benchmark graph) through
-``TorchRoutedBackend`` and checks it against the float64 gather path on
-the same card, the ``entry()`` twin against its CPU run, and the
-``sparse-scores`` CLI on a 100K-peer edge list.
+builds the port's kernels (nvcc, one process per source) and Clos
+planner (g++) from the sources in the checkout; the build phase prints
+ptxas's registers and spills for every kernel and fails if one spills
+or ``mont_mul`` passes 64 registers. It holds the route-stage kernel
+(``csrc/lane_perm.cu``: one Clos route stage, transpose included, in
+its forward, middle and reverse forms) bit for bit against its plain
+PyTorch version in every form and dtype, times it by CUDA-graph replay
+beside its memory bound, its plain version, one ``torch.gather`` call,
+and the parent design (the lane permutation, then a torch transpose),
+then runs the Clos-routed EigenTrust converge at 1M peers
+(Barabási–Albert, m=8, seed 0, both directions attested: the repo's
+converge benchmark graph) through ``TorchRoutedBackend`` and checks it
+against the float64 gather path on the same card, its routes against
+the plain stages' bit for bit, the ``entry()`` twin against its CPU
+run, and the ``sparse-scores`` CLI on a 100K-peer edge list.
 
 The second path is batched attestation ingest on the field kernels
 (``csrc/field.cu``: the Montgomery multiply that replaces the TPU's
-``_mont_mul_kernel``, and the modular add and subtract). The build
-phase prints ptxas's registers and spills for ``field.cu`` and fails if
-``mont_mul`` spills or passes 64 registers. The script holds each
+``_mont_mul_kernel``, and the modular add and subtract). The script
+holds each
 kernel against its plain PyTorch version bit for bit (four moduli, n
 from 1 to 819,200 around the tile sizes, edge and lazy values, operands
 as made, 16-byte-misaligned views and broadcast rows, and Python ints
@@ -64,8 +69,8 @@ CLI_PEERS = 100_000
 # 32-bit integer multiply-adds per clock per SM on compute capability 9.0
 # (CUDA C++ Programming Guide, arithmetic instruction throughput table)
 INT_MULADD_PER_CLK_PER_SM = 64
-# around one tile of mont_mul/add_mod (64 rows) and one block of sub_mod
-# (128), an ingest chunk, N = 512's products and the Poseidon MDS step
+# around one 64-row tile of the field kernels and two, an ingest chunk,
+# N = 512's products and the Poseidon MDS step
 FIELD_SIZES = (1, 63, 64, 65, 127, 128, 129, 32_768, 262_144, 819_200)
 FIELD_SAMPLE = 1000            # lanes per case checked against Python ints
 # (lanes, launches per CUDA graph) of the field kernels' device times: one
@@ -171,6 +176,23 @@ def graph_ms(fn, launches: int, replays: int = 5,
     return out
 
 
+_FORMS = ("forward", "middle", "reverse")
+_CTYPES = {"f": "float32", "d": "float64", "i": "int32"}
+
+
+def _kernel_name(mangled: str) -> str:
+    """A readable name for a kernel of field.cu or lane_perm.cu."""
+    m = re.search(r"route_stage_kernelI([fdi])Li(\d)E", mangled)
+    if m:
+        return f"route_stage_{_FORMS[int(m[2])]}_{_CTYPES[m[1]]}"
+    for key, name in (("mont_mul_kernel", "mont_mul"),
+                      ("add_sub_kernelILi1E", "add_mod"),
+                      ("add_sub_kernelILi2E", "sub_mod")):
+        if key in mangled:
+            return name
+    return mangled
+
+
 def ptxas_usage(log: str) -> dict:
     """Registers, spill bytes and shared memory of each kernel, from the
     ``-Xptxas -v`` messages of a build."""
@@ -178,8 +200,7 @@ def ptxas_usage(log: str) -> dict:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = next((k for k in ("mont_mul", "add_mod", "sub_mod")
-                         if f"{k}_kernel" in m.group(1)), m.group(1))
+            name = _kernel_name(m.group(1))
             usage[name] = {}
         elif name is not None:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
@@ -214,49 +235,79 @@ def phase_build() -> None:
         ((nvcc_s, nvcc_lib), (field_s, field_lib),
          (gxx_s, gxx_lib)) = nv.result(), nf.result(), gx.result()
     check(native.available(), "native planner did not load")
-    log = build_log(ROOT / field_lib)
-    usage = ptxas_usage(log)
+    usage = {}
+    for lib in (nvcc_lib, field_lib):
+        usage.update(ptxas_usage(build_log(ROOT / lib)))
     emit("build", nvcc_s=nvcc_s, nvcc_lib=nvcc_lib, field_nvcc_s=field_s,
-         field_lib=field_lib, gxx_s=gxx_s, gxx_lib=gxx_lib,
-         field_ptxas=[ln.strip() for ln in log.splitlines()
-                      if "ptxas" in ln or "spill" in ln],
-         field_usage=usage)
+         field_lib=field_lib, gxx_s=gxx_s, gxx_lib=gxx_lib, usage=usage)
+    check(len(usage) == 12, f"ptxas reported {sorted(usage)}, not the "
+          "nine route-stage kernels and the three field kernels")
+    spills = {k: u for k, u in usage.items() if u.get("spill_bytes") != 0}
+    check(not spills, f"kernels spill: {spills}")
     mm = usage.get("mont_mul", {})
-    check(mm.get("registers", FIELD_MAX_REGISTERS + 1) <= FIELD_MAX_REGISTERS
-          and mm.get("spill_bytes") == 0,
-          f"mont_mul uses {mm} (budget {FIELD_MAX_REGISTERS} registers, "
-          "no spills)")
+    check(mm.get("registers", FIELD_MAX_REGISTERS + 1) <= FIELD_MAX_REGISTERS,
+          f"mont_mul uses {mm} (budget {FIELD_MAX_REGISTERS} registers)")
+
+
+# (m, B) of the route-stage kernel's transposing forms checked on the
+# card: small m (below, at and past a tile's 16 or 32 rows) with one and
+# three subproblems (a ragged last tile), and every (m, B) of the 1M-peer
+# routes: the edge route's three levels at T = 262,144, the state
+# route's two at 8,192
+ROUTE_STAGE_CASES = ((2, 1), (2, 3), (16, 1), (16, 3), (64, 1), (64, 3),
+                     (8192, 1), (8192, 3), (1 << 18, 1), (1 << 11, 128),
+                     (16, 1 << 14), (64, 128))
 
 
 def phase_kernel_vs_plain(device) -> float:
-    """Bit-exact lane_perm vs plain on the card; returns max |err|."""
+    """Every form and dtype of the route-stage kernel bit for bit against
+    its plain version on the card, and whole routes against the host's
+    and the plain stages'; returns max |err|."""
     import numpy as np
     import torch
 
-    from protocol_tpu_torch.ops.clos import apply_route, apply_route_np, plan_route
-    from protocol_tpu_torch.ops.kernels import lane_perm, lane_perm_plain
+    from protocol_tpu_torch.ops.clos import (
+        apply_route,
+        apply_route_np,
+        plan_route,
+        route_core,
+    )
+    from protocol_tpu_torch.ops.kernels import (
+        FORWARD,
+        MIDDLE,
+        REVERSE,
+        route_stage,
+        route_stage_plain,
+    )
 
     rng = np.random.default_rng(1)
     worst = 0.0
     cases = []
-    for dtype in (torch.float32, torch.float64):
-        # 1 and 7 rows (below the TPU kernel's 8-row tile), both main-path
-        # row counts, and one whose last tile is ragged for either dtype
-        for T in (1, 7, 8192, 262_144, 1000):
-            x = torch.from_numpy(rng.standard_normal((T, 128))).to(
-                device=device, dtype=dtype)
+    shapes = ([(MIDDLE, 1, T) for T in (1, 7, 8192, 262_144, 1000)]
+              + [(form, m, m * B) for form in (FORWARD, REVERSE)
+                 for m, B in ROUTE_STAGE_CASES])
+    for dtype in (torch.float32, torch.float64, torch.int32):
+        for form, m, T in shapes:
+            if dtype == torch.int32:
+                x = torch.from_numpy(rng.integers(-2**31, 2**31 - 1,
+                                                  (T, 128), dtype=np.int32))
+            else:
+                x = torch.from_numpy(rng.standard_normal((T, 128)))
+            x = x.to(device=device, dtype=dtype)
             idx = torch.from_numpy(
                 rng.integers(0, 128, (T, 128), dtype=np.uint8)).to(device)
-            y = lane_perm(x, idx)
+            y = route_stage(x, idx, form, m)
             torch.cuda.synchronize()
-            ref = lane_perm_plain(x, idx)
-            err = float((y - ref).abs().max())
+            ref = route_stage_plain(x, idx, form, m)
+            err = float((y.double() - ref.double()).abs().max())
             exact = bool(torch.equal(y, ref))
             worst = max(worst, err)
-            cases.append({"dtype": str(dtype).split(".")[1], "T": T,
+            cases.append({"dtype": str(dtype).split(".")[1],
+                          "form": _FORMS[form], "m": m, "T": T,
                           "bit_exact": exact, "max_abs_err": err})
-            check(exact, f"lane_perm differs from plain at {dtype}, T={T}")
-    emit("kernel_vs_plain", cases=cases)
+            check(exact, f"route_stage differs from plain: {cases[-1]}")
+    emit("kernel_vs_plain", cases=len(cases), all_bit_exact=True,
+         max_abs_err=worst, shapes=[[_FORMS[f], m, T] for f, m, T in shapes])
 
     e = 20
     perm = rng.permutation(1 << e)
@@ -265,33 +316,72 @@ def phase_kernel_vs_plain(device) -> float:
     plan_s = time.perf_counter() - t0
     x = rng.standard_normal(1 << e).astype(np.float32)
     stages = tuple(torch.from_numpy(s).to(device) for s in plan.stages)
-    y = apply_route(torch.from_numpy(x).to(device), stages, plan.e, plan.bits)
-    y = y.cpu().numpy()
+    xd = torch.from_numpy(x).to(device)
+    y = apply_route(xd, stages, plan.e, plan.bits).cpu().numpy()
     exact = bool(np.array_equal(y, apply_route_np(plan, x))
                  and np.array_equal(y, x[perm]))
+    # the middle levels alone on 128 subproblems, from stage 1, as a
+    # sharded route runs them on each device
+    sub = route_core(xd, stages, 1, e - 7, plan.bits[1:])
+    sub_plain = route_core(xd, stages, 1, e - 7, plan.bits[1:],
+                           stage=route_stage_plain)
+    sub_exact = bool(torch.equal(sub, sub_plain))
     emit("route_vs_numpy", e=e, bits=list(plan.bits), plan_s=plan_s,
-         bit_exact=exact)
+         bit_exact=exact, batched_from_stage_1_bit_exact=sub_exact)
     check(exact, "routed permutation at e=20 differs from apply_route_np")
+    check(sub_exact, "the batched middle levels differ from the plain stages")
     return worst
 
 
-def phase_kernel_times(device) -> dict:
-    """The lane-permutation stage at the main path's shapes (float32):
-    T = 262,144 rows (edge route) and 8,192 (state route), each as the
-    route's first stage, whose transpose is ``(1, T, 128) → (1, 128, T)``.
-    Device ms per launch by CUDA-graph replay with the operands cycling
-    through copies that outgrow the L2: the kernel, its plain version,
-    ``torch.gather`` and the pair the first stage runs in torch
-    (``torch.gather`` then ``.transpose(1, 2).contiguous()``), and the
-    kernel followed by that transpose; the kernel with the same operands
-    every launch (L2-warm) and back to back (host-paced) beside them."""
+def _gather_form(x, idx64, form: int, m: int):
+    """One ``torch.gather`` call that computes a route stage's form: the
+    transposes are in the strides of its index and output (the
+    library's time beside the kernel's; the port never calls it)."""
     import torch
 
-    from protocol_tpu_torch.ops.kernels import lane_perm, lane_perm_plain
+    T = x.shape[0]
+    B = T // m
+    buf = torch.empty_like(x)
+    if form == 0:  # forward: out[b, j, r] = x[b, r, idx[b, r, j]]
+        torch.gather(x.view(B, m, 128), 2, idx64.view(B, m, 128),
+                     out=buf.view(B, 128, m).transpose(1, 2))
+    elif form == 2:  # reverse: out[b, r, l] = x[b, idx[b, r, l], r]
+        torch.gather(x.view(B, 128, m), 1,
+                     idx64.view(B, m, 128).transpose(1, 2),
+                     out=buf.view(B, m, 128).transpose(1, 2))
+    else:
+        torch.gather(x, 1, idx64, out=buf)
+    return buf
+
+
+def phase_kernel_times(device) -> dict:
+    """The route-stage kernel at the main path's shapes (float32):
+    T = 262,144 rows (edge route) and 8,192 (state route). Device ms per
+    launch by CUDA-graph replay with the operands cycling through copies
+    that outgrow the L2, for each form at each m the route gives it. At
+    the route's first stage (forward, m = T), beside the kernel: its
+    plain version; one ``torch.gather`` call that computes the same
+    function (strided index and output); ``torch.gather`` and its
+    transpose as the parent design ran them in torch
+    (``.transpose(1, 2).contiguous()``); the parent design's kernel (the
+    middle form, the PR 1 kernel's loop) followed by that transpose; the
+    kernel with the same operands every launch (L2-warm) and back to
+    back (host-paced)."""
+    import torch
+
+    from protocol_tpu_torch.ops.kernels import (
+        FORWARD,
+        MIDDLE,
+        REVERSE,
+        lane_perm,
+        route_stage,
+        route_stage_plain,
+    )
 
     g = torch.Generator(device=device).manual_seed(2)
     rows = {}
-    for T, launches in ((262_144, 20), (8192, 200)):
+    for T, launches, inner in ((262_144, 20, (1 << 11, 16)),
+                               (8192, 200, (64,))):
         set_bytes = T * 128 * (4 + 1 + 8)  # x, idx and its int64 copy
         sets = min(launches, max(2, -(-COLD_BYTES // set_bytes)))
         xs = [torch.randn(T, 128, device=device, generator=g)
@@ -308,19 +398,30 @@ def phase_kernel_times(device) -> dict:
             return y.view(1, T, 128).transpose(1, 2).contiguous()
 
         nbytes = T * 128 * (4 + 1 + 4)  # x read, idx read, out written
+        forms = [{"form": _FORMS[f], "m": m, "ms": cold(
+            lambda x, i, i64, f=f, m=m: route_stage(x, i, f, m))}
+            for m in (T,) + inner for f in (FORWARD, REVERSE)]
+        forms.append({"form": "middle", "m": None, "ms": cold(
+            lambda x, i, i64: route_stage(x, i, MIDDLE))})
         rec = {
-            "T": T, "m": T, "operand_sets": sets, "graph_launches": launches,
-            "ms": cold(lambda x, i, i64: lane_perm(x, i)),
-            "plain_ms": cold(lambda x, i, i64: lane_perm_plain(x, i)),
-            "library_ms": cold(lambda x, i, i64: torch.gather(x, 1, i64)),
+            "T": T, "m": T, "form": "forward", "operand_sets": sets,
+            "graph_launches": launches,
+            "ms": forms[0]["ms"],
+            "plain_ms": cold(
+                lambda x, i, i64: route_stage_plain(x, i, FORWARD, T)),
+            "library_ms": cold(
+                lambda x, i, i64: _gather_form(x, i64, FORWARD, T)),
+            "gather_ms": cold(lambda x, i, i64: torch.gather(x, 1, i64)),
             "gather_transpose_ms": cold(
                 lambda x, i, i64: transposed(torch.gather(x, 1, i64))),
-            "kernel_transpose_ms": cold(
+            "parent_design_ms": cold(
                 lambda x, i, i64: transposed(lane_perm(x, i))),
-            "same_inputs_ms": graph_ms(lambda i: lane_perm(xs[0], idxs[0]),
-                                       launches)["ms"],
-            "back_to_back_ms": cuda_ms(lambda: lane_perm(xs[0], idxs[0]),
-                                       launches),
+            "same_inputs_ms": graph_ms(
+                lambda i: route_stage(xs[0], idxs[0], FORWARD, T),
+                launches)["ms"],
+            "back_to_back_ms": cuda_ms(
+                lambda: route_stage(xs[0], idxs[0], FORWARD, T), launches),
+            "forms": forms,
             "bytes": nbytes,
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
         }
@@ -332,46 +433,114 @@ def phase_kernel_times(device) -> dict:
     return rows
 
 
-def _sweep_breakdown(arrs, static, s, iters: int = 10) -> dict:
-    """Device ms per stage of one routed sweep, by CUDA events."""
+def _parent_stage(x2d, idx2d, form: int, m: int):
+    """A route stage as the parent design ran it: the lane-permutation
+    kernel (the middle form) with the transpose as a torch copy."""
+    from protocol_tpu_torch.ops.kernels import FORWARD, REVERSE, lane_perm
+
+    T = x2d.shape[0]
+    if form == REVERSE:
+        x2d = x2d.view(T // m, 128, m).transpose(1, 2).reshape(T, 128)
+    y = lane_perm(x2d, idx2d)
+    if form == FORWARD:
+        y = y.view(T // m, m, 128).transpose(1, 2).reshape(T, 128)
+    return y
+
+
+def _sweep_breakdown(arrs, static, s, launches: int = 10) -> dict:
+    """Device ms of one routed sweep and of each of its parts, by
+    CUDA-graph replay: the sweep (``spmv_routed``) and the same sweep
+    with each route run as the parent design ran it (``_parent_stage``);
+    each route both ways, and the parent's transposes alone. The edge
+    route's operands (128 MB and 7 × 32 MB of indices) outgrow the L2;
+    the state route's cycle through copies of its input and its stages
+    that do. Also checks, on random values, that both routes through the
+    kernel equal the plain stages' routes and the parent's bit for bit,
+    and that the sweep equals the parent's."""
     import torch
 
-    from protocol_tpu_torch.ops.clos import route_core
+    from protocol_tpu_torch.ops.clos import route_core, route_forms
     from protocol_tpu_torch.ops.converge import dangling_and_damping
-    from protocol_tpu_torch.ops.routed import blocked_broadcast, blocked_reduce
+    from protocol_tpu_torch.ops.kernels import route_stage, route_stage_plain
+    from protocol_tpu_torch.ops.routed import (
+        blocked_broadcast,
+        blocked_reduce,
+        spmv_routed,
+    )
 
-    stages = {
-        "broadcast": lambda s: blocked_broadcast(
-            arrs, s, static.out_widths, static.out_xs, 1 << static.edge_e),
-        "edge_route": lambda x: route_core(
-            x, arrs["edge_stages"], 0, static.edge_e, static.edge_bits),
-        "reduce": lambda y: blocked_reduce(
-            arrs, y, static.in_widths, static.in_xs, static.in_n_pos,
-            1 << static.state_e),
-        "state_route": lambda z: route_core(
-            z, arrs["state_stages"], 0, static.state_e, static.state_bits),
+    E, Z = 1 << static.edge_e, 1 << static.state_e
+
+    def broadcast(s):
+        return blocked_broadcast(arrs, s, static.out_widths, static.out_xs,
+                                 E)
+
+    def reduce(y):
+        return blocked_reduce(arrs, y, static.in_widths, static.in_xs,
+                              static.in_n_pos, Z)
+
+    def edge_route(x, stage=route_stage):
+        return route_core(x, arrs["edge_stages"], 0, static.edge_e,
+                          static.edge_bits, stage)
+
+    def state_route(z, stages=arrs["state_stages"], stage=route_stage):
+        return route_core(z, stages, 0, static.state_e, static.state_bits,
+                          stage)
+
+    def parent_sweep(s):
+        y = edge_route(broadcast(s), _parent_stage)
+        return dangling_and_damping(
+            arrs, s, state_route(reduce(y), stage=_parent_stage))
+
+    g = torch.Generator(device=s.device).manual_seed(9)
+    exact = {}
+    for name, route, n in (("edge_route", edge_route, E),
+                           ("state_route", state_route, Z)):
+        r = torch.randn(n, device=s.device, generator=g)
+        fused = route(r)
+        exact[name] = bool(torch.equal(fused, route(r, stage=route_stage_plain))
+                           and torch.equal(fused, route(r, stage=_parent_stage)))
+    sweep_equal = bool(torch.equal(spmv_routed(arrs, static, s),
+                                   parent_sweep(s)))
+
+    x = broadcast(s)
+    y = edge_route(x)
+    z = reduce(y)
+    sets = min(40, max(2, -(-COLD_BYTES // (
+        Z * 4 + len(arrs["state_stages"]) * Z))))
+    zs = [z.clone() for _ in range(sets)]
+    stage_sets = [tuple(t.clone() for t in arrs["state_stages"])
+                  for _ in range(sets)]
+
+    def ms(fn, n=launches):
+        return graph_ms(fn, n)["ms"]
+
+    def transposes(i):  # the parent's six edge-route transposes alone
+        for _, form, m in route_forms(static.edge_e, static.edge_bits):
+            if form == 0:
+                x.view(-1, m, 128).transpose(1, 2).contiguous()
+            elif form == 2:
+                x.view(-1, 128, m).transpose(1, 2).contiguous()
+
+    out = {
+        "sweep": ms(lambda i: spmv_routed(arrs, static, s)),
+        "sweep_parent_design": ms(lambda i: parent_sweep(s)),
+        "broadcast": ms(lambda i: broadcast(s)),
+        "edge_route": ms(lambda i: edge_route(x)),
+        "edge_route_parent_design": ms(
+            lambda i: edge_route(x, _parent_stage)),
+        "edge_route_transposes_parent_design": ms(transposes),
+        "reduce": ms(lambda i: reduce(y)),
+        "state_route": ms(lambda i: state_route(zs[i], stage_sets[i]),
+                          sets),
+        "state_route_parent_design": ms(
+            lambda i: state_route(zs[i], stage_sets[i], _parent_stage),
+            sets),
+        "dangling_damping": ms(lambda i: dangling_and_damping(arrs, s, z)),
+        "state_route_operand_sets": sets,
+        "routes_bit_exact_vs_plain_and_parent": exact,
+        "sweep_equal_to_parent_design": sweep_equal,
     }
-    out = {}
-    v = s
-    for name, fn in stages.items():
-        arg = v
-        out[name] = cuda_ms(lambda: fn(arg), iters)
-        v = fn(arg)
-    out["dangling_damping"] = cuda_ms(
-        lambda: dangling_and_damping(arrs, s, v), iters)
-    # the edge route's transposes alone (its lane_perm launches are the
-    # kernel_times row at T = 2^edge_e / 128)
-    E = 1 << static.edge_e
-    x = torch.empty(E, device=s.device)
-    t = 0.0
-    for li in range(len(static.edge_bits) - 1):
-        El = 1 << (static.edge_e - 7 * li)
-        B, m = E // El, El >> 7
-        t += cuda_ms(lambda: x.view(B, m, 128).transpose(1, 2).reshape(E),
-                     iters)
-        t += cuda_ms(lambda: x.view(B, 128, m).transpose(1, 2).reshape(E),
-                     iters)
-    out["edge_route_transposes"] = t
+    del zs, stage_sets
     torch.cuda.synchronize()
     return out
 
@@ -427,6 +596,7 @@ def phase_main_path(device) -> int:
     s = torch.from_numpy(op.initial_scores(1000.0)).to(device)
     sweep_ms = cuda_ms(lambda: spmv_routed(arrs, static, s), 10)
     breakdown = _sweep_breakdown(arrs, static, s)
+    routes_exact = breakdown["routes_bit_exact_vs_plain_and_parent"]
     del arrs
 
     total = op.n_valid * 1000.0
@@ -449,12 +619,14 @@ def phase_main_path(device) -> int:
                             device=device)
     gs = torch.from_numpy(gop.valid * 1000.0).to(device)
     gather_sweep_ms = cuda_ms(lambda: spmv(garrs, gs), 10)
+    gather_sweep_graph_ms = graph_ms(lambda i: spmv(garrs, gs), 10)["ms"]
     del garrs
 
     emit("main_path", engine="routed", dtype="float32", alpha=ALPHA,
          tol=TOL, iterations=iters, delta=delta, converge_s=converge_s,
          sweep_ms=sweep_ms, sweep_breakdown_ms=breakdown,
          gather_f32_sweep_ms=gather_sweep_ms,
+         gather_f32_sweep_graph_ms=gather_sweep_graph_ms,
          conservation_rel_err=cons, finite=finite,
          gather_f64_iterations=g_iters, gather_f64_delta=g_delta,
          gather_f64_converge_s=gather64_s,
@@ -471,6 +643,8 @@ def phase_main_path(device) -> int:
           f"iterations {iters} vs float64 gather {g_iters}")
     check(close, "routed scores differ from the float64 gather path "
           f"(max |diff| {max_abs})")
+    check(all(routes_exact.values()), "a route through the kernel differs "
+          f"from the plain stages' or the parent's: {routes_exact}")
     check(launches == iters * stages_per_sweep,
           f"lane_perm launched {launches} times, expected "
           f"{iters} sweeps × {stages_per_sweep}")
@@ -721,10 +895,10 @@ def phase_field_times(device) -> dict:
                 "library_ms": None,
             }
         del x, y, xs, ys
-        control = out[("sub_mod", n)]["ms"]
+        add = out[("add_mod", n)]["ms"]
         for name in kernels:
             rec = out[(name, n)]
-            rec["ms_over_sub_mod"] = rec["ms"] / control
+            rec["ms_over_add_mod"] = rec["ms"] / add
             emit("field_times", **rec, graph_launches=launches,
                  int_rate=int_rate, **rate_src,
                  library_note="no single PyTorch call computes a "
@@ -996,7 +1170,7 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    edge = times[262_144]
+    edge = times[262_144]  # the edge route's first stage: forward, m = T
     print(json.dumps({"kernels": [{
         "name": "lane_perm",
         "route": "cuda",

@@ -45,7 +45,7 @@
 //     819,200    0.0646 ms     0.0474 ms   (the Poseidon MDS step)
 //
 // Bytes bind every kernel at every size, mont_mul's operations close
-// behind. At 32,768 lanes the grid is 256 blocks on 132 SMs: latency
+// behind. At 32,768 lanes the grid is 512 blocks on 132 SMs: latency
 // and launch, not a rate, decide there.
 //
 // Design. The first design gave each thread its own 88-byte row, read
@@ -78,10 +78,10 @@
 // them, and came within a few per cent at the larger sizes (PERF.md has
 // the numbers).
 //
-// sub_mod keeps the first design, one thread per element reading and
-// writing its own 88-byte row with 4-byte loads (row stride 0 or 22):
-// it moves the same bytes and does the same adds as add_mod, so beside
-// it in one run it shows what the staging does.
+// add_mod and sub_mod are one kernel body, staged as mont_mul is, with
+// the operation a template argument; each keeps its arithmetic (add,
+// ripple, conditional subtract of p; or the borrow test, a conditional
+// +p, ripple).
 //
 // The modulus limbs and -p⁻¹ mod 2^12 are kernel arguments, so one binary
 // serves every modulus (BN254 Fr and Fq, secp256k1 p and n). Any n ≥ 1
@@ -98,7 +98,6 @@ namespace {
 constexpr int kBits = 12;
 constexpr int kLimbs = 22;
 constexpr int32_t kMask = (1 << kBits) - 1;
-constexpr int kThreads = 128;  // sub_mod's block
 constexpr int kRows = 64;  // rows (and threads) of a staged block
 constexpr int kTileWords = kRows * kLimbs;
 // blocks per SM that mont_mul must fit: 64 registers a thread at most
@@ -196,17 +195,30 @@ __device__ __forceinline__ void mont_mul_row(const int32_t *xs,
     cond_sub_p(r, p);
 }
 
-__device__ __forceinline__ void add_mod_row(int32_t (&xs)[kLimbs],
+enum Op { kMontMul = 0, kAddMod = 1, kSubMod = 2 };
+
+// xs ← (xs + ys) mod p, or (xs − ys) mod p
+template <int kOp>
+__device__ __forceinline__ void add_sub_row(int32_t (&xs)[kLimbs],
                                             const int32_t (&ys)[kLimbs],
                                             const Modulus &m) {
     int32_t p[kLimbs];
 #pragma unroll
-    for (int j = 0; j < kLimbs; ++j) {
-        p[j] = m.p[j];
-        xs[j] = (int32_t)((uint32_t)xs[j] + (uint32_t)ys[j]);
+    for (int j = 0; j < kLimbs; ++j) p[j] = m.p[j];
+    if (kOp == kAddMod) {
+#pragma unroll
+        for (int j = 0; j < kLimbs; ++j)
+            xs[j] = (int32_t)((uint32_t)xs[j] + (uint32_t)ys[j]);
+        ripple<kLimbs>(xs);
+        cond_sub_p(xs, p);
+    } else {
+        const bool need_p = !geq(xs, ys);
+#pragma unroll
+        for (int j = 0; j < kLimbs; ++j)
+            xs[j] = (int32_t)((uint32_t)xs[j] - (uint32_t)ys[j] +
+                              (need_p ? (uint32_t)p[j] : 0u));
+        ripple<kLimbs>(xs);
     }
-    ripple<kLimbs>(xs);
-    cond_sub_p(xs, p);
 }
 
 // --- staging through shared memory -----------------------------------------
@@ -366,8 +378,9 @@ mont_mul_kernel(const int32_t *__restrict__ x, int64_t sx,
     store_tile(out, xt, r0, rows);
 }
 
+template <int kOp>
 __global__ void __launch_bounds__(kRows)
-add_mod_kernel(const int32_t *__restrict__ x, int64_t sx,
+add_sub_kernel(const int32_t *__restrict__ x, int64_t sx,
                const int32_t *__restrict__ y, int64_t sy,
                int32_t *__restrict__ out, int64_t n, Modulus m) {
     __shared__ __align__(16) int32_t xt[kTileWords];
@@ -382,46 +395,11 @@ add_mod_kernel(const int32_t *__restrict__ x, int64_t sx,
         int32_t ys[kLimbs];
         read_row(xt, sx ? r : 0, xs);
         read_row(yt, sy ? r : 0, ys);
-        add_mod_row(xs, ys, m);
+        add_sub_row<kOp>(xs, ys, m);
     }
     __syncthreads();
     if (live) write_row(xt, r, xs);
     store_tile(out, xt, r0, rows);
-}
-
-// --- sub_mod: one thread per element, its own rows -------------------------
-
-__device__ __forceinline__ void load_row(const int32_t *__restrict__ src,
-                                         int64_t i, int32_t (&r)[kLimbs]) {
-    const int32_t *row = src + i;
-#pragma unroll
-    for (int j = 0; j < kLimbs; ++j) r[j] = __ldg(row + j);
-}
-
-__device__ __forceinline__ void store_row(int32_t *__restrict__ dst,
-                                          int64_t i,
-                                          const int32_t (&r)[kLimbs]) {
-    int32_t *row = dst + i * kLimbs;
-#pragma unroll
-    for (int j = 0; j < kLimbs; ++j) row[j] = r[j];
-}
-
-__global__ void __launch_bounds__(kThreads)
-sub_mod_kernel(const int32_t *__restrict__ x, int64_t sx,
-               const int32_t *__restrict__ y, int64_t sy,
-               int32_t *__restrict__ out, int64_t n, Modulus m) {
-    const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-    if (i >= n) return;
-    int32_t xs[kLimbs], ys[kLimbs];
-    load_row(x, i * sx, xs);
-    load_row(y, i * sy, ys);
-    const bool need_p = !geq(xs, ys);
-#pragma unroll
-    for (int j = 0; j < kLimbs; ++j)
-        xs[j] = (int32_t)((uint32_t)xs[j] - (uint32_t)ys[j] +
-                          (need_p ? (uint32_t)m.p[j] : 0u));
-    ripple<kLimbs>(xs);
-    store_row(out, i, xs);
 }
 
 }  // namespace
@@ -444,19 +422,18 @@ int field_launch(int op, const int32_t *x, int64_t sx, const int32_t *y,
     m.p_inv_neg = p_inv_neg;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int64_t tiles = (n + kRows - 1) / kRows;
-    const int64_t blocks = (n + kThreads - 1) / kThreads;
     if (tiles > (int64_t)0x7fffffff) return -1;
     switch (op) {
-        case 0:
+        case kMontMul:
             mont_mul_kernel<<<(unsigned)tiles, kRows, 0, s>>>(x, sx, y, sy,
                                                               out, n, m);
             break;
-        case 1:
-            add_mod_kernel<<<(unsigned)tiles, kRows, 0, s>>>(x, sx, y, sy,
-                                                             out, n, m);
+        case kAddMod:
+            add_sub_kernel<kAddMod><<<(unsigned)tiles, kRows, 0, s>>>(
+                x, sx, y, sy, out, n, m);
             break;
-        case 2:
-            sub_mod_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
+        case kSubMod:
+            add_sub_kernel<kSubMod><<<(unsigned)tiles, kRows, 0, s>>>(
                 x, sx, y, sy, out, n, m);
             break;
         default:

@@ -1,27 +1,60 @@
-// Lane permutation: one stage of a Clos route, for Hopper (sm_90a).
+// One stage of a Clos route, transpose included, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel protocol_tpu/ops/clos.py::_lane_perm_pallas
-// (Mosaic tpu.dynamic_gather over 1024-row tiles). It computes, for x and
-// idx viewed as [T, 128],
+// (Mosaic tpu.dynamic_gather over 1024-row tiles) together with the
+// transposes that the reference's route_core runs between its calls. A
+// route over E = B·2^e slots runs 2·levels − 1 stages (ops/clos.py
+// route_core); with x, idx and out as [T, 128] rows, T = E / 128, and a
+// forward or reverse stage's m (a power of two, T = B·m), each stage is
+// one launch of one of three forms:
 //
-//     out[r, j] = x[r, idx[r, j]]
+//     forward  out[b, j, r] = x[b, r, idx[b, r, j]]    x, idx as (B, m, 128)
+//     middle   out[t, j]    = x[t, idx[t, j]]          (the TPU kernel)
+//     reverse  out[b, r, l] = x[b, idx[b, r, l], r]    x as (B, 128, m)
 //
-// a gather inside each 128-lane row. Every stage of both routes of a routed
-// sweep runs it (ops/clos.py route_core).
+// The forward form is a gather inside each 128-lane row that stores its
+// result transposed; the reverse form loads transposed and then gathers.
+// They are the loops of the host replay clos_apply_route
+// (csrc/clos_plan.cpp). Indices are uint8, values float32, float64 or
+// int32.
 //
 // Bound: device memory. Each element is read once (4 or 8 bytes), its
-// index once (1 byte) and written once (4 or 8 bytes): 9 bytes per element
-// in float32, 17 in float64, and no arithmetic to speak of. The least time
-// is those bytes over the card's memory rate.
+// index once (1 byte) and written once: 9 bytes per element in float32,
+// 17 in float64, and no arithmetic to speak of. The transpose adds no
+// bytes, since it happens in shared memory. At the 1M-peer converge's
+// edge route (T = 262,144, seven stages) the bound is 0.0901 ms a stage
+// on an H100 SXM (3.35 TB/s); the state route's five stages (T = 8,192)
+// are bound at 0.0028 ms, about a launch's fixed cost.
 //
-// Design, simple first: one block owns a tile of whole rows (16 KB of
-// data). It copies the tile into shared memory with 16-byte loads, reads
-// four indices at a time as one uchar4, gathers the four values from
-// shared memory and writes them back as consecutive elements. Global
-// traffic is therefore coalesced on every side; the random part of the
-// access pattern stays in shared memory. Any T >= 1 works: the last tile
-// may hold fewer rows. Fusing the transposes between stages into the
-// kernel (as the host replay clos_apply_route does) is left for later.
+// Design. A block owns R consecutive rows (a 16 KB tile: 32 rows in
+// float32 and int32, 16 in float64), so every global access is a
+// coalesced 16-byte word and the random part of the access pattern stays
+// in shared memory:
+//
+// - middle: the tile's rows come in as they lie; four indices are read
+//   at a time as one uchar4, the four values gathered from the row in
+//   shared memory and stored as consecutive elements.
+// - forward: the rows come in as they lie, and so do the indices, into a
+//   tile with a 33-word row pitch. Each thread then makes V consecutive
+//   outputs (V = 16 bytes / element), which lie in one output row j at
+//   consecutive r: it reads each output's index down a column of the
+//   index tile (conflict-free: the pitch is odd) and gathers its value.
+//   Where R ≤ m, each output row receives R consecutive elements
+//   (128 bytes); where m < R, the tile holds R / m whole subproblems and
+//   its output is one contiguous region.
+// - reverse: the inverse of the forward store. The tile's source is R
+//   consecutive elements of each of the 128 columns (or, where m < R,
+//   one contiguous region), loaded as 16-byte words and written into the
+//   tile transposed, at a 129-element row pitch, so that the 32 (or 16)
+//   rows a warp writes at once fall in distinct banks. The gather then
+//   runs as in the middle form.
+//
+// The same enumeration of a tile's (row, column) pairs serves the
+// forward store and the reverse load (tposed below): consecutive numbers
+// walk runs of s = min(R, m) consecutive rows of one column, which are
+// consecutive addresses on the transposed side. Every m that a route
+// produces works (a power of two ≥ 2), and any T that is a multiple of
+// m; a ragged last tile holds whole subproblems.
 //
 // Interface: a plain C function, loaded with ctypes. It launches on the
 // given stream, does not synchronise, and returns cudaGetLastError().
@@ -34,71 +67,139 @@ namespace {
 constexpr int kLanes = 128;
 constexpr int kThreads = 256;
 constexpr int kTileBytes = 16384;
+constexpr int kIdxPitch = kLanes / 4 + 1;  // words of an index row, padded
 
+enum Form { kForward = 0, kMiddle = 1, kReverse = 2 };
+
+// V values as one 16-byte word
 template <typename T>
-struct Store4;
-
-template <>
-struct Store4<float> {
-    __device__ static void run(float *p, float a, float b, float c, float d) {
-        *reinterpret_cast<float4 *>(p) = make_float4(a, b, c, d);
-    }
+union Vec {
+    int4 raw;
+    T v[16 / sizeof(T)];
 };
 
-template <>
-struct Store4<int32_t> {
-    __device__ static void run(int32_t *p, int32_t a, int32_t b, int32_t c,
-                               int32_t d) {
-        *reinterpret_cast<int4 *>(p) = make_int4(a, b, c, d);
-    }
-};
+// Number k of a tile's (row, column) pairs: its row rr and column c, and
+// its offset from the start of the array on the transposed side, where
+// row t of a subproblem b = t / m sits at b·128·m + c·m + t % m.
+__device__ __forceinline__ int64_t tposed(int64_t t0, int k, int lg_s,
+                                          int lg_m, int &rr, int &c) {
+    c = (k >> lg_s) & (kLanes - 1);
+    rr = ((k >> (lg_s + 7)) << lg_s) | (k & ((1 << lg_s) - 1));
+    const int64_t t = t0 + rr;
+    return ((t >> lg_m) << (lg_m + 7)) + ((int64_t)c << lg_m) +
+           (t & ((int64_t(1) << lg_m) - 1));
+}
 
-template <>
-struct Store4<double> {
-    __device__ static void run(double *p, double a, double b, double c,
-                               double d) {
-        reinterpret_cast<double2 *>(p)[0] = make_double2(a, b);
-        reinterpret_cast<double2 *>(p)[1] = make_double2(c, d);
-    }
-};
-
-template <typename T>
+template <typename T, int kForm>
 __global__ void __launch_bounds__(kThreads)
-lane_perm_kernel(const T *__restrict__ x, const uint8_t *__restrict__ idx,
-                 T *__restrict__ out, int64_t rows) {
+route_stage_kernel(const T *__restrict__ x, const uint8_t *__restrict__ idx,
+                   T *__restrict__ out, int64_t rows, int lg_m) {
     constexpr int kRows = kTileBytes / (kLanes * (int)sizeof(T));
-    __shared__ __align__(16) T tile[kRows * kLanes];
+    constexpr int kLgRows = sizeof(T) == 8 ? 4 : 5;
+    constexpr int kV = 16 / (int)sizeof(T);
+    constexpr int kPitch = kForm == kReverse ? kLanes + 1 : kLanes;
+    __shared__ __align__(16) T tile[kRows * kPitch];
+    __shared__ uint32_t ids[kForm == kForward ? kRows * kIdxPitch : 1];
 
-    const int64_t row0 = (int64_t)blockIdx.x * kRows;
-    const int64_t left = rows - row0;
+    const int64_t t0 = (int64_t)blockIdx.x * kRows;
+    const int64_t left = rows - t0;
     const int n = (int)(left < kRows ? left : kRows) * kLanes;
-    const int64_t base = row0 * kLanes;
+    const int64_t base = t0 * kLanes;
+    const int lg_s = lg_m < kLgRows ? lg_m : kLgRows;
 
-    // 1. the tile's rows into shared memory, 16 bytes per load
-    const int4 *xv = reinterpret_cast<const int4 *>(x + base);
-    int4 *tv = reinterpret_cast<int4 *>(tile);
-    const int nv = n * (int)sizeof(T) / 16;
-    for (int i = threadIdx.x; i < nv; i += kThreads) tv[i] = __ldg(xv + i);
+    // 1. the tile into shared memory
+    if (kForm == kReverse) {
+        for (int k = threadIdx.x * kV; k < n; k += kThreads * kV) {
+            int rr, c;
+            Vec<T> w;
+            w.raw = __ldg(reinterpret_cast<const int4 *>(
+                x + tposed(t0, k, lg_s, lg_m, rr, c)));
+#pragma unroll
+            for (int v = 0; v < kV; ++v) {
+                tposed(t0, k + v, lg_s, lg_m, rr, c);
+                tile[rr * kPitch + c] = w.v[v];
+            }
+        }
+    } else {
+        const int4 *xv = reinterpret_cast<const int4 *>(x + base);
+        int4 *tv = reinterpret_cast<int4 *>(tile);
+        for (int i = threadIdx.x; i < n / kV; i += kThreads)
+            tv[i] = __ldg(xv + i);
+    }
+    if (kForm == kForward) {
+        const uint32_t *iw = reinterpret_cast<const uint32_t *>(idx + base);
+        for (int i = threadIdx.x; i < n / 4; i += kThreads)
+            ids[(i >> 5) * kIdxPitch + (i & 31)] = __ldg(iw + i);
+    }
     __syncthreads();
 
-    // 2. four outputs per step: one uchar4 of indices, four shared reads,
-    //    one (or two) 16-byte stores
-    const uchar4 *iv = reinterpret_cast<const uchar4 *>(idx + base);
-    for (int i = threadIdx.x; i < n / 4; i += kThreads) {
-        const uchar4 q = __ldg(iv + i);
-        const T *row = tile + ((4 * i) & ~(kLanes - 1));
-        Store4<T>::run(out + base + 4 * i, row[q.x], row[q.y], row[q.z],
-                       row[q.w]);
+    // 2. the outputs
+    if (kForm == kForward) {
+        const uint8_t *ib = reinterpret_cast<const uint8_t *>(ids);
+        for (int k = threadIdx.x * kV; k < n; k += kThreads * kV) {
+            int rr, c;
+            const int64_t o = tposed(t0, k, lg_s, lg_m, rr, c);
+            Vec<T> w;
+#pragma unroll
+            for (int v = 0; v < kV; ++v) {
+                tposed(t0, k + v, lg_s, lg_m, rr, c);
+                w.v[v] = tile[rr * kPitch + ib[rr * 4 * kIdxPitch + c]];
+            }
+            *reinterpret_cast<int4 *>(out + o) = w.raw;
+        }
+    } else {
+        // four outputs a step: one uchar4 of indices, four shared reads
+        const uchar4 *iv = reinterpret_cast<const uchar4 *>(idx + base);
+        for (int i = threadIdx.x; i < n / 4; i += kThreads) {
+            const uchar4 q = __ldg(iv + i);
+            const T *row = tile + ((4 * i) >> 7) * kPitch;
+            T *o = out + base + 4 * i;
+            if (kV == 4) {
+                Vec<T> w;
+                w.v[0] = row[q.x];
+                w.v[1] = row[q.y];
+                w.v[2] = row[q.z];
+                w.v[3] = row[q.w];
+                *reinterpret_cast<int4 *>(o) = w.raw;
+            } else {
+                Vec<T> a, b;
+                a.v[0] = row[q.x];
+                a.v[1] = row[q.y];
+                b.v[0] = row[q.z];
+                b.v[1] = row[q.w];
+                reinterpret_cast<int4 *>(o)[0] = a.raw;
+                reinterpret_cast<int4 *>(o)[1] = b.raw;
+            }
+        }
     }
 }
 
 template <typename T>
-int launch(const void *x, const uint8_t *idx, void *out, int64_t rows,
-           cudaStream_t stream) {
+int launch(int form, const void *x, const uint8_t *idx, void *out,
+           int64_t rows, int lg_m, cudaStream_t stream) {
     constexpr int kRows = kTileBytes / (kLanes * (int)sizeof(T));
     const int64_t blocks = (rows + kRows - 1) / kRows;
-    lane_perm_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        static_cast<const T *>(x), idx, static_cast<T *>(out), rows);
+    const T *xt = static_cast<const T *>(x);
+    T *ot = static_cast<T *>(out);
+    switch (form) {
+        case kForward:
+            route_stage_kernel<T, kForward>
+                <<<(unsigned)blocks, kThreads, 0, stream>>>(xt, idx, ot,
+                                                            rows, lg_m);
+            break;
+        case kMiddle:
+            route_stage_kernel<T, kMiddle>
+                <<<(unsigned)blocks, kThreads, 0, stream>>>(xt, idx, ot,
+                                                            rows, lg_m);
+            break;
+        case kReverse:
+            route_stage_kernel<T, kReverse>
+                <<<(unsigned)blocks, kThreads, 0, stream>>>(xt, idx, ot,
+                                                            rows, lg_m);
+            break;
+        default:
+            return -1;
+    }
     return (int)cudaGetLastError();
 }
 
@@ -106,23 +207,29 @@ int launch(const void *x, const uint8_t *idx, void *out, int64_t rows,
 
 extern "C" {
 
-// dtype: 0 float32, 1 float64, 2 int32. x, idx and out are contiguous
-// [rows, 128] arrays on the device, each 16-byte aligned; rows >= 1.
-// Returns 0, a cudaError_t from the launch, or -1 for a bad argument.
-int lane_perm(int dtype, const void *x, const uint8_t *idx, void *out,
-              int64_t rows, void *stream) {
+// dtype: 0 float32, 1 float64, 2 int32; form: 0 forward, 1 middle,
+// 2 reverse. x, idx and out are contiguous [rows, 128] arrays on the
+// device, each 16-byte aligned; rows >= 1. lg_m is log2 of the forward
+// or reverse form's m, 1 <= lg_m, with rows a multiple of m; the middle
+// form ignores it. Returns 0, a cudaError_t from the launch, or -1 for a
+// bad argument.
+int route_stage(int dtype, int form, const void *x, const uint8_t *idx,
+                void *out, int64_t rows, int lg_m, void *stream) {
     if (rows < 1 || rows > (int64_t)0x7fffffff) return -1;
+    if (form != kMiddle &&
+        (lg_m < 1 || lg_m > 31 || (rows & ((int64_t(1) << lg_m) - 1))))
+        return -1;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (dtype) {
-        case 0: return launch<float>(x, idx, out, rows, s);
-        case 1: return launch<double>(x, idx, out, rows, s);
-        case 2: return launch<int32_t>(x, idx, out, rows, s);
+        case 0: return launch<float>(form, x, idx, out, rows, lg_m, s);
+        case 1: return launch<double>(form, x, idx, out, rows, lg_m, s);
+        case 2: return launch<int32_t>(form, x, idx, out, rows, lg_m, s);
         default: return -1;
     }
 }
 
-const char *lane_perm_error_string(int code) {
-    if (code == -1) return "lane_perm: bad argument";
+const char *route_stage_error_string(int code) {
+    if (code == -1) return "route_stage: bad argument";
     return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

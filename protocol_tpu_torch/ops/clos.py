@@ -10,10 +10,10 @@ planner (``protocol_tpu_torch.native``) or by the pure-Python twin
 below; the planner code here is a copy of the reference's and produces
 the same bytes.
 
-The executor runs on torch tensors. Each lane-permutation stage is the
-hand-written CUDA kernel ``ops.kernels.lane_perm`` on the card (on
-every stage, whatever its row count) and its plain ``torch.gather``
-version on the CPU; the transposes are torch reshapes and copies.
+The executor runs on torch tensors. Each stage, its transpose included,
+is one launch of the hand-written CUDA kernel ``ops.kernels.route_stage``
+on the card (whatever its row count), and its plain version on the CPU:
+``torch.gather`` with the reference's reshapes and transposes.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .kernels import lane_perm
+from .kernels import FORWARD, MIDDLE, REVERSE, route_stage
 
 __all__ = [
     "RoutePlan",
@@ -34,6 +34,7 @@ __all__ = [
     "apply_route_np",
     "route_bits",
     "route_core",
+    "route_forms",
 ]
 
 
@@ -303,26 +304,28 @@ def apply_route_np(plan: RoutePlan, x: np.ndarray) -> np.ndarray:
     return x
 
 
-def route_core(x: torch.Tensor, stages, si: int, e_sub: int,
-               bits: tuple) -> torch.Tensor:
+def route_forms(e_sub: int, bits: tuple, si: int = 0) -> list:
+    """``(stage index, form, m)`` of each stage of a route over B·2^e_sub
+    slots, in execution order from stage ``si``: a forward stage per
+    interior level, the middle one, then a reverse stage per interior
+    level, each interior level's subproblems of m rows of 128."""
+    levels = len(bits)
+    ms = [1 << (e_sub - 7 * (li + 1)) for li in range(levels - 1)]
+    return ([(si + li, FORWARD, m) for li, m in enumerate(ms)]
+            + [(si + levels - 1, MIDDLE, 1)]
+            + [(si + 2 * levels - 2 - li, REVERSE, ms[li])
+               for li in reversed(range(levels - 1))])
+
+
+def route_core(x: torch.Tensor, stages, si: int, e_sub: int, bits: tuple,
+               stage=route_stage) -> torch.Tensor:
     """Apply a route program to ``x`` of length B·2^e_sub (B independent
-    subproblems batched contiguously: every reshape/transpose works on
-    El-sized chunks, so subproblem boundaries are never crossed)."""
+    subproblems batched contiguously: every stage works on El-sized
+    chunks, so subproblem boundaries are never crossed). ``stage`` runs
+    one stage (``route_stage``, or its plain version)."""
     E = x.numel()
-    for li in range(len(bits) - 1):
-        El = 1 << (e_sub - 7 * li)
-        B, m = E // El, El >> 7
-        x = lane_perm(x.view(-1, 128), stages[si].view(-1, 128))
-        x = x.view(B, m, 128).transpose(1, 2).reshape(E)
-        si += 1
-    x = lane_perm(x.view(-1, 128), stages[si].view(-1, 128)).view(E)
-    si += 1
-    for li in reversed(range(len(bits) - 1)):
-        El = 1 << (e_sub - 7 * li)
-        B, m = E // El, El >> 7
-        x = x.view(B, 128, m).transpose(1, 2).reshape(E)
-        x = lane_perm(x.view(-1, 128), stages[si].view(-1, 128)).view(E)
-        si += 1
+    for s, form, m in route_forms(e_sub, bits, si):
+        x = stage(x.view(-1, 128), stages[s].view(-1, 128), form, m).view(E)
     return x
 
 

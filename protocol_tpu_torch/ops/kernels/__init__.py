@@ -1,9 +1,24 @@
 """Kernels written by hand for Hopper, each beside its plain version.
 
-- ``lane_perm`` (CUDA, ``csrc/lane_perm.cu``): one Clos routing stage,
-  replacing ``protocol_tpu/ops/clos.py::_lane_perm_pallas``.
+- ``route_stage`` (CUDA, ``csrc/lane_perm.cu``): one Clos route stage,
+  transpose included, replacing ``protocol_tpu/ops/clos.py::_lane_perm_pallas``
+  and the transposes around it; ``lane_perm`` is its middle form.
+- ``field_kernel`` (CUDA, ``csrc/field.cu``): the Montgomery multiply
+  and the modular add and subtract.
 """
 
-from .lane_perm_kernel import LAUNCHES, lane_perm, lane_perm_plain, reset_launches
+from .lane_perm_kernel import (
+    FORWARD,
+    LAUNCHES,
+    MIDDLE,
+    REVERSE,
+    lane_perm,
+    lane_perm_plain,
+    reset_launches,
+    route_stage,
+    route_stage_plain,
+)
 
-__all__ = ["LAUNCHES", "lane_perm", "lane_perm_plain", "reset_launches"]
+__all__ = ["FORWARD", "LAUNCHES", "MIDDLE", "REVERSE", "lane_perm",
+           "lane_perm_plain", "reset_launches", "route_stage",
+           "route_stage_plain"]

@@ -13,8 +13,8 @@ Field elements are rows of ``NUM_LIMBS`` little-endian limbs of
 
 ``ctx`` is a ``fieldops.FieldCtx`` (its ``modulus``, ``p_limbs`` and
 ``p_inv_neg``). The source's header says what bounds each kernel and
-how ``mont_mul`` and ``add_mod`` stage their rows through shared memory
-(``TILE_ROWS`` rows a block). It is compiled with ``nvcc`` for
+how the kernels stage their rows through shared memory (``TILE_ROWS``
+rows a block). It is compiled with ``nvcc`` for
 ``sm_90a`` into ``protocol_tpu_torch/build/`` at the first launch and
 bound with ctypes.
 
@@ -45,7 +45,7 @@ BASE = 1 << LIMB_BITS
 MASK = BASE - 1
 
 _SRC = Path(__file__).resolve().parents[2] / "csrc" / "field.cu"
-TILE_ROWS = 64  # rows of a mont_mul/add_mod block: kRows in field.cu
+TILE_ROWS = 64  # rows of a block: kRows in field.cu
 _OPS = {"mont_mul": 0, "add_mod": 1, "sub_mod": 2}
 
 # launches of each CUDA kernel since the last reset_launches(): the proof

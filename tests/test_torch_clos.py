@@ -1,9 +1,10 @@
 """The port's Clos planner and executor against the reference's.
 
 Permutations are exact: every comparison here is bit for bit. On the CPU
-the port's lane permutation runs its plain version (``torch.gather``);
-the CUDA kernel is held against that plain version on the card by
-``tests/test_torch_kernels.py`` and ``chip_smoke.py``.
+each route stage runs its plain version (``torch.gather`` with the
+reference's reshapes and transposes); the CUDA kernel is held against
+that plain version on the card by ``tests/test_torch_kernels.py`` and
+``chip_smoke.py``.
 """
 
 import numpy as np
@@ -16,7 +17,7 @@ from protocol_tpu import native as ref_native
 from protocol_tpu.ops import clos as ref
 from protocol_tpu_torch import native as port_native
 from protocol_tpu_torch.ops import clos as port
-from protocol_tpu_torch.ops.kernels import lane_perm
+from protocol_tpu_torch.ops.kernels import FORWARD, MIDDLE, REVERSE, lane_perm
 
 _DTYPES = [(np.float32, torch.float32), (np.float64, torch.float64),
            (np.int32, torch.int32)]
@@ -122,3 +123,36 @@ def test_lane_perm_plain_matches_take_along_axis(T):
         y_ref = np.asarray(ref._lane_perm(jnp.asarray(x), jnp.asarray(idx),
                                           pallas=False))
         assert np.array_equal(y, y_ref)
+
+
+@pytest.mark.parametrize("np_dtype,t_dtype", _DTYPES)
+@pytest.mark.parametrize("e", [7, 12, 15, 20])
+def test_route_core_stage_forms_match_reference(e, np_dtype, t_dtype):
+    """The port's route, one fused stage form at a time, against the
+    reference's ``route_core`` (``pallas=False``) and ``apply_route_np``
+    on random stage indices (any uint8 lanes make a route a function,
+    not only a plan's): the whole route on B = 1, and the middle levels
+    from stage 1 on B = 128 subproblems, as a sharded route runs them."""
+    rng = np.random.default_rng(e)
+    E = 1 << e
+    bits = port.route_bits(e)
+    stages = [rng.integers(0, 128, E).astype(np.uint8)
+              for _ in range(2 * len(bits) - 1)]
+    x = _values(rng, E, np_dtype)
+    t_stages = tuple(torch.from_numpy(s) for s in stages)
+    j_stages = tuple(jnp.asarray(s) for s in stages)
+    runs = [(0, e, bits)]
+    if len(bits) > 1:
+        runs.append((1, e - 7, bits[1:]))
+    for si, e_sub, b in runs:
+        forms = [f for _, f, _ in port.route_forms(e_sub, b, si)]
+        assert forms == ([FORWARD] * (len(b) - 1) + [MIDDLE]
+                         + [REVERSE] * (len(b) - 1))
+        y = port.route_core(torch.from_numpy(x), t_stages, si, e_sub, b)
+        assert y.dtype == t_dtype
+        y_ref = np.asarray(ref.route_core(jnp.asarray(x), j_stages, si,
+                                          e_sub, b, pallas=False))
+        assert np.array_equal(y.numpy(), y_ref), (si, e_sub, b)
+    plan = port.RoutePlan(e=e, bits=bits, stages=stages)
+    y = port.apply_route(torch.from_numpy(x), t_stages, e, bits).numpy()
+    assert np.array_equal(y, port.apply_route_np(plan, x))

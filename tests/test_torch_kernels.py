@@ -11,7 +11,15 @@ import pytest
 import torch
 
 from protocol_tpu_torch.ops import kernels
-from protocol_tpu_torch.ops.kernels import lane_perm, lane_perm_plain
+from protocol_tpu_torch.ops.kernels import (
+    FORWARD,
+    MIDDLE,
+    REVERSE,
+    lane_perm,
+    lane_perm_plain,
+    route_stage,
+    route_stage_plain,
+)
 
 _DTYPES = (np.float32, np.float64, np.int32)
 
@@ -82,6 +90,64 @@ def test_lane_perm_kernel_takes_unaligned_views():
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["lane_perm"] == before + 1
     assert torch.equal(y, lane_perm_plain(x2, idx))
+
+
+# --- the fused route stage: forward and reverse forms -------------------------
+
+def _stage_numpy(x, idx, form, m):
+    """A stage as the reference's numpy replay runs it (``apply_route_np``):
+    take_along_axis with the transposes as swapaxes."""
+    T = x.shape[0]
+    if form == REVERSE:
+        x = x.reshape(T // m, 128, m).swapaxes(1, 2).reshape(T, 128)
+    y = np.take_along_axis(x, idx.astype(np.int64), axis=1)
+    if form == FORWARD:
+        y = y.reshape(T // m, m, 128).swapaxes(1, 2).reshape(T, 128)
+    return y
+
+
+@pytest.mark.parametrize("form", [FORWARD, REVERSE])
+@pytest.mark.parametrize("m,B", [(2, 1), (2, 3), (16, 3), (64, 2)])
+def test_route_stage_on_cpu_is_the_plain_version(form, m, B):
+    for np_dtype in _DTYPES:
+        x, idx = _case(m * B, np_dtype, m + B)
+        before = kernels.LAUNCHES["lane_perm"]
+        y = route_stage(torch.from_numpy(x), torch.from_numpy(idx), form, m)
+        assert kernels.LAUNCHES["lane_perm"] == before  # no kernel on CPU
+        assert np.array_equal(y.numpy(), _stage_numpy(x, idx, form, m))
+
+
+def test_route_stage_rejects_bad_input():
+    x = torch.zeros(6, 128)
+    idx = torch.zeros(6, 128, dtype=torch.uint8)
+    for form, m in ((FORWARD, 3), (FORWARD, 4), (REVERSE, 1), (REVERSE, 12),
+                    (3, 2)):
+        with pytest.raises(ValueError):
+            route_stage(x, idx, form, m)
+    assert torch.equal(route_stage(x, idx, MIDDLE), lane_perm_plain(x, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", [FORWARD, REVERSE])
+@pytest.mark.parametrize("m", [2, 16, 64, 1 << 13])
+def test_route_stage_kernel_matches_plain(form, m):
+    """Each transposing form of the CUDA kernel, bit-exact against its
+    plain version on the card (float32, float64, int32): m below, at and
+    past a tile's 16 or 32 rows and the state route's first level, on
+    one subproblem and on three (for m < 32, a ragged last tile); one
+    count per launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    for B in (1, 3):
+        for np_dtype in _DTYPES:
+            x, idx = _case(m * B, np_dtype, m + B)
+            x, idx = torch.from_numpy(x).cuda(), torch.from_numpy(idx).cuda()
+            before = kernels.LAUNCHES["lane_perm"]
+            y = route_stage(x, idx, form, m)
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["lane_perm"] == before + 1
+            assert torch.equal(y, route_stage_plain(x, idx, form, m)), (
+                np_dtype, B)
 
 
 # --- the field kernels (csrc/field.cu) ----------------------------------------
@@ -177,9 +243,8 @@ def test_field_kernels_on_cpu_take_offset_and_broadcast_operands():
 def test_field_kernels_match_plain(p):
     """Each field kernel, bit-exact against its plain version on the
     card (edge values, lazy x for the multiply, n below, at and past one
-    64-row tile of mont_mul/add_mod, two tiles and one, and one 128-thread
-    block of sub_mod), one count per launch; strided views are copied,
-    not refused."""
+    64-row tile, two tiles and one, and 127 to 1000), one count per
+    launch; strided views are copied, not refused."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     ctx = fo.FieldCtx(p)
@@ -239,3 +304,38 @@ def test_field_kernels_at_the_mds_width():
         got = kernel(x, y, ctx)
         torch.cuda.synchronize()
         assert torch.equal(got, plain(x, y, ctx)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", _MODULI)
+def test_sub_mod_borrows_on_every_operand_form(p):
+    """The staged ``sub_mod`` where x < y on every other lane (the
+    conditional +p), on operands as made, off a 16-byte boundary and
+    broadcast on either side, over a ragged last tile: bit-exact against
+    its plain version and against Python ints."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    ctx = fo.FieldCtx(p)
+    n = 2 * fk.TILE_ROWS + 1
+    rng = np.random.default_rng(9)
+    hi = [int.from_bytes(rng.bytes(33), "little") % p for _ in range(n + 3)]
+    lo = [v // 2 for v in hi]
+    xs = [lo[i] if i % 2 else hi[i] for i in range(n + 3)]
+    ys = [hi[i] if i % 2 else lo[i] for i in range(n + 3)]
+    x = torch.from_numpy(fo.to_limbs(xs)).cuda()
+    y = torch.from_numpy(fo.to_limbs(ys)).cuda()
+    row = fo.NUM_LIMBS
+    forms = {"as_made": (lambda t: t[:n], lambda t: t[:n],
+                         lambda i: i, lambda i: i),
+             "offset": (lambda t: t[1:n + 1], lambda t: t[3:n + 3],
+                        lambda i: i + 1, lambda i: i + 3),
+             "broadcast_x": (lambda t: t[5].expand(n, row), lambda t: t[:n],
+                             lambda i: 5, lambda i: i),
+             "broadcast_y": (lambda t: t[:n], lambda t: t[2].expand(n, row),
+                             lambda i: i, lambda i: 2)}
+    for form, (fx, fy, ix, iy) in forms.items():
+        got = fk.sub_mod(fx(x), fy(y), ctx)
+        torch.cuda.synchronize()
+        assert torch.equal(got, fk.sub_mod_plain(fx(x), fy(y), ctx)), form
+        want = [(xs[ix(i)] - ys[iy(i)]) % p for i in range(n)]
+        assert fo.from_limbs(got.cpu().numpy()) == want, form

@@ -4,12 +4,14 @@
     python tools/torch_profile_sweep.py [--peers 1000000] [--sweeps 10]
 
 Builds the Barabási–Albert graph (m=8, seed 0, the converge benchmark
-graph), runs ``--sweeps`` routed sweeps (``spmv_routed``) and as many
-gather sweeps (``spmv``) in float32 under ``torch.profiler`` and prints,
-for each engine, one JSON line: host wall time per sweep, device busy
-time per sweep (the union of kernel intervals), the device's idle share
-of the window, and device time per kernel name. Needs a CUDA device;
-imports nothing of JAX or ``protocol_tpu``.
+graph), runs ``--sweeps`` routed sweeps (``spmv_routed``), as many edge
+routes alone (``route_core``: one route-stage launch per stage, so
+``device_events`` is the stage count) and as many gather sweeps
+(``spmv``) in float32 under ``torch.profiler`` and prints, for each, one
+JSON line: host wall time per sweep, device busy time per sweep (the
+union of kernel intervals), the device's idle share of the window, and
+device time and events per kernel name. Needs a CUDA device; imports
+nothing of JAX or ``protocol_tpu``.
 """
 
 from __future__ import annotations
@@ -99,6 +101,7 @@ def main() -> int:
         print("torch_profile_sweep: no CUDA device", file=sys.stderr)
         return 2
     from protocol_tpu_torch.graph import barabasi_albert_edges, build_operator
+    from protocol_tpu_torch.ops.clos import route_core
     from protocol_tpu_torch.ops.converge import operator_arrays, spmv
     from protocol_tpu_torch.ops.routed import (
         build_routed_operator,
@@ -122,7 +125,14 @@ def main() -> int:
                   warmup=3)
     print(json.dumps({"engine": "routed", "peers": n, "card": card, **rec}),
           flush=True)
-    del arrs
+    x = torch.randn(1 << static.edge_e, device="cuda")
+    rec = profile(lambda: route_core(x, arrs["edge_stages"], 0,
+                                     static.edge_e, static.edge_bits),
+                  args.sweeps, warmup=3)
+    print(json.dumps({"engine": "routed", "part": "edge_route", "peers": n,
+                      "stages": len(arrs["edge_stages"]), "card": card,
+                      **rec}), flush=True)
+    del arrs, x
 
     gop = build_operator(n, src, dst, val, valid)
     garrs = operator_arrays(gop, dtype=torch.float32, alpha=0.1,
