@@ -333,24 +333,17 @@ def phase_kernel_vs_plain(device) -> float:
     return worst
 
 
-def _gather_form(x, idx64, form: int, m: int):
-    """One ``torch.gather`` call that computes a route stage's form: the
-    transposes are in the strides of its index and output (the
-    library's time beside the kernel's; the port never calls it)."""
+def _gather_forward(x, idx64, m: int):
+    """One ``torch.gather`` call that computes a route stage's forward
+    form, ``out[b, j, r] = x[b, r, idx[b, r, j]]``: the transpose is in
+    the strides of its output (the library's time beside the kernel's;
+    the port never calls it)."""
     import torch
 
-    T = x.shape[0]
-    B = T // m
+    B = x.shape[0] // m
     buf = torch.empty_like(x)
-    if form == 0:  # forward: out[b, j, r] = x[b, r, idx[b, r, j]]
-        torch.gather(x.view(B, m, 128), 2, idx64.view(B, m, 128),
-                     out=buf.view(B, 128, m).transpose(1, 2))
-    elif form == 2:  # reverse: out[b, r, l] = x[b, idx[b, r, l], r]
-        torch.gather(x.view(B, 128, m), 1,
-                     idx64.view(B, m, 128).transpose(1, 2),
-                     out=buf.view(B, m, 128).transpose(1, 2))
-    else:
-        torch.gather(x, 1, idx64, out=buf)
+    torch.gather(x.view(B, m, 128), 2, idx64.view(B, m, 128),
+                 out=buf.view(B, 128, m).transpose(1, 2))
     return buf
 
 
@@ -361,12 +354,11 @@ def phase_kernel_times(device) -> dict:
     that outgrow the L2, for each form at each m the route gives it. At
     the route's first stage (forward, m = T), beside the kernel: its
     plain version; one ``torch.gather`` call that computes the same
-    function (strided index and output); ``torch.gather`` and its
-    transpose as the parent design ran them in torch
-    (``.transpose(1, 2).contiguous()``); the parent design's kernel (the
-    middle form, the PR 1 kernel's loop) followed by that transpose; the
-    kernel with the same operands every launch (L2-warm) and back to
-    back (host-paced)."""
+    function (strided output); ``torch.gather`` and its transpose as the
+    parent design ran them in torch (``.transpose(1, 2).contiguous()``);
+    the parent design's kernel (the middle form, the lane permutation
+    alone) followed by that transpose; the kernel with the same operands
+    every launch (L2-warm) and back to back (host-paced)."""
     import torch
 
     from protocol_tpu_torch.ops.kernels import (
@@ -410,7 +402,7 @@ def phase_kernel_times(device) -> dict:
             "plain_ms": cold(
                 lambda x, i, i64: route_stage_plain(x, i, FORWARD, T)),
             "library_ms": cold(
-                lambda x, i, i64: _gather_form(x, i64, FORWARD, T)),
+                lambda x, i, i64: _gather_forward(x, i64, T)),
             "gather_ms": cold(lambda x, i, i64: torch.gather(x, 1, i64)),
             "gather_transpose_ms": cold(
                 lambda x, i, i64: transposed(torch.gather(x, 1, i64))),
@@ -440,11 +432,11 @@ def _parent_stage(x2d, idx2d, form: int, m: int):
 
     T = x2d.shape[0]
     if form == REVERSE:
-        x2d = x2d.view(T // m, 128, m).transpose(1, 2).reshape(T, 128)
-    y = lane_perm(x2d, idx2d)
+        x2d = x2d.view(T // m, 128, m).transpose(1, 2).contiguous()
+    y = lane_perm(x2d.view(T, 128), idx2d)
     if form == FORWARD:
-        y = y.view(T // m, m, 128).transpose(1, 2).reshape(T, 128)
-    return y
+        y = y.view(T // m, m, 128).transpose(1, 2).contiguous()
+    return y.view(T, 128)
 
 
 def _sweep_breakdown(arrs, static, s, launches: int = 10) -> dict:

@@ -35,10 +35,11 @@
 //   at a time as one uchar4, the four values gathered from the row in
 //   shared memory and stored as consecutive elements.
 // - forward: the rows come in as they lie, and so do the indices, into a
-//   tile with a 33-word row pitch. Each thread then makes V consecutive
-//   outputs (V = 16 bytes / element), which lie in one output row j at
-//   consecutive r: it reads each output's index down a column of the
-//   index tile (conflict-free: the pitch is odd) and gathers its value.
+//   tile with a 33-word row pitch. Each thread then makes V outputs
+//   (V = 16 bytes / element) that are consecutive in memory, in one
+//   output row j at consecutive r where m ≥ V: it reads each output's
+//   index down a column of the index tile (conflict-free: the pitch is
+//   odd), gathers its value, and stores the V as one 16-byte word.
 //   Where R ≤ m, each output row receives R consecutive elements
 //   (128 bytes); where m < R, the tile holds R / m whole subproblems and
 //   its output is one contiguous region.
@@ -153,23 +154,13 @@ route_stage_kernel(const T *__restrict__ x, const uint8_t *__restrict__ idx,
         for (int i = threadIdx.x; i < n / 4; i += kThreads) {
             const uchar4 q = __ldg(iv + i);
             const T *row = tile + ((4 * i) >> 7) * kPitch;
-            T *o = out + base + 4 * i;
-            if (kV == 4) {
-                Vec<T> w;
-                w.v[0] = row[q.x];
-                w.v[1] = row[q.y];
-                w.v[2] = row[q.z];
-                w.v[3] = row[q.w];
-                *reinterpret_cast<int4 *>(o) = w.raw;
-            } else {
-                Vec<T> a, b;
-                a.v[0] = row[q.x];
-                a.v[1] = row[q.y];
-                b.v[0] = row[q.z];
-                b.v[1] = row[q.w];
-                reinterpret_cast<int4 *>(o)[0] = a.raw;
-                reinterpret_cast<int4 *>(o)[1] = b.raw;
-            }
+            const T g[4] = {row[q.x], row[q.y], row[q.z], row[q.w]};
+            Vec<T> w[4 / kV];
+#pragma unroll
+            for (int v = 0; v < 4; ++v) w[v / kV].v[v % kV] = g[v];
+#pragma unroll
+            for (int h = 0; h < 4 / kV; ++h)
+                reinterpret_cast<int4 *>(out + base + 4 * i)[h] = w[h].raw;
         }
     }
 }
@@ -177,29 +168,15 @@ route_stage_kernel(const T *__restrict__ x, const uint8_t *__restrict__ idx,
 template <typename T>
 int launch(int form, const void *x, const uint8_t *idx, void *out,
            int64_t rows, int lg_m, cudaStream_t stream) {
+    using Kernel = void (*)(const T *, const uint8_t *, T *, int64_t, int);
+    const Kernel kernels[] = {route_stage_kernel<T, kForward>,
+                              route_stage_kernel<T, kMiddle>,
+                              route_stage_kernel<T, kReverse>};
+    if (form < kForward || form > kReverse) return -1;
     constexpr int kRows = kTileBytes / (kLanes * (int)sizeof(T));
     const int64_t blocks = (rows + kRows - 1) / kRows;
-    const T *xt = static_cast<const T *>(x);
-    T *ot = static_cast<T *>(out);
-    switch (form) {
-        case kForward:
-            route_stage_kernel<T, kForward>
-                <<<(unsigned)blocks, kThreads, 0, stream>>>(xt, idx, ot,
-                                                            rows, lg_m);
-            break;
-        case kMiddle:
-            route_stage_kernel<T, kMiddle>
-                <<<(unsigned)blocks, kThreads, 0, stream>>>(xt, idx, ot,
-                                                            rows, lg_m);
-            break;
-        case kReverse:
-            route_stage_kernel<T, kReverse>
-                <<<(unsigned)blocks, kThreads, 0, stream>>>(xt, idx, ot,
-                                                            rows, lg_m);
-            break;
-        default:
-            return -1;
-    }
+    kernels[form]<<<(unsigned)blocks, kThreads, 0, stream>>>(
+        static_cast<const T *>(x), idx, static_cast<T *>(out), rows, lg_m);
     return (int)cudaGetLastError();
 }
 

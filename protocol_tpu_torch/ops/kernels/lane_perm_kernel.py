@@ -66,9 +66,11 @@ def route_stage_plain(x2d: torch.Tensor, idx2d: torch.Tensor, form: int,
     T = x2d.shape[0]
     if form == FORWARD:
         y = torch.gather(x2d, 1, idx2d.long())
-        return y.view(T // m, m, LANES).transpose(1, 2).reshape(T, LANES)
+        return y.view(T // m, m, LANES).transpose(1, 2).contiguous().view(
+            T, LANES)
     if form == REVERSE:
-        x2d = x2d.view(T // m, LANES, m).transpose(1, 2).reshape(T, LANES)
+        x2d = x2d.view(T // m, LANES, m).transpose(1, 2).contiguous().view(
+            T, LANES)
     return torch.gather(x2d, 1, idx2d.long())
 
 
@@ -154,7 +156,7 @@ def route_stage(x2d: torch.Tensor, idx2d: torch.Tensor, form: int,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.route_stage(_DTYPES[x.dtype], form, x.data_ptr(),
                              idx.data_ptr(), out.data_ptr(), x.shape[0],
-                             max(m, 2).bit_length() - 1, stream)
+                             m.bit_length() - 1, stream)
     if rc != 0:
         raise RuntimeError(
             f"route_stage launch failed: "

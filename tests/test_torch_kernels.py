@@ -107,13 +107,17 @@ def _stage_numpy(x, idx, form, m):
 
 
 @pytest.mark.parametrize("form", [FORWARD, REVERSE])
-@pytest.mark.parametrize("m,B", [(2, 1), (2, 3), (16, 3), (64, 2)])
+@pytest.mark.parametrize("m,B", [(2, 1), (2, 3), (16, 3), (64, 2), (128, 1)])
 def test_route_stage_on_cpu_is_the_plain_version(form, m, B):
+    """The plain forms against numpy; at m = 128 on one subproblem the
+    transpose of a square block is a view whose strides a caller's
+    ``view`` would refuse, so the result must come back contiguous."""
     for np_dtype in _DTYPES:
         x, idx = _case(m * B, np_dtype, m + B)
         before = kernels.LAUNCHES["lane_perm"]
         y = route_stage(torch.from_numpy(x), torch.from_numpy(idx), form, m)
         assert kernels.LAUNCHES["lane_perm"] == before  # no kernel on CPU
+        assert y.is_contiguous()
         assert np.array_equal(y.numpy(), _stage_numpy(x, idx, form, m))
 
 
