@@ -10,7 +10,8 @@ ptxas's registers and spills for every kernel and fails if one spills
 or ``mont_mul`` passes 64 registers. It holds the route-stage kernel
 (``csrc/lane_perm.cu``: one Clos route stage, transpose included, in
 its forward, middle and reverse forms) bit for bit against its plain
-PyTorch version in every form and dtype, times it by CUDA-graph replay
+PyTorch version in every form and dtype, on one vector and on a batch
+of five sharing one index array, times it by CUDA-graph replay
 beside its memory bound, its plain version, one ``torch.gather`` call,
 and the parent design (the lane permutation, then a torch transpose),
 then runs the Clos-routed EigenTrust converge at 1M peers
@@ -19,6 +20,21 @@ converge benchmark graph) through ``TorchRoutedBackend`` and checks it
 against the float64 gather path on the same card, its routes against
 the plain stages' bit for bit, the ``entry()`` twin against its CPU
 run, and the ``sparse-scores`` CLI on a 100K-peer edge list.
+
+On the same operator (no second plan build) run the churn path and the
+topic batch. ``delta``: a ``DeltaEngine`` converges cold, absorbs 20
+``revision_batch``es of 5,000 edges and 1,000 new edges into its COO
+tail with no full build, converges warm on the patched operator (B1 on
+every stage) within 1e-3 of a from-scratch float64 gather converge and
+within bounds, over all peers and per renormalized row and tail
+destination, that the same converge with the tail fold dropped or the
+row rescale reset must fail; the refresh ladder serves a localized
+window by ``device_partial`` and a flooded one by ``sampled``, each
+within its declared L1 budget of the full converge. ``topics``: five
+topic vectors through one batched loop, each route stage one launch
+for all five (B1's batch axis), bit-exact against single routes and
+the plain stages, and within rtol 1e-4 of each topic's own converge;
+the batched stage and sweep are timed beside the single ones.
 
 The second path is batched attestation ingest on the field kernels
 (``csrc/field.cu``: the Montgomery multiply that replaces the TPU's
@@ -45,6 +61,7 @@ of JAX or of ``protocol_tpu``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import random
@@ -65,6 +82,24 @@ ALPHA = 0.1
 TOL = 1e-6
 MAX_ITERATIONS = 100
 CLI_PEERS = 100_000
+# the churn path (phase delta): the serve smoke's churn evidence at the
+# scale README.md documents, 20 revision batches = 100,000 revised edges
+DELTA_SEED = 7
+DELTA_BATCHES = 20
+DELTA_BATCH_EDGES = 5000
+DELTA_INSERTS = 1000           # one structural batch into the COO tail
+DELTA_PARITY = 1e-3            # max relative diff vs a rebuild (serve smoke)
+# the churn window's bounds against the same rebuild, about 30 times what
+# the H100 gives (5.9e-7 and 8.9e-6): relative L1 over all peers, and the
+# largest relative difference of one peer among the renormalized rows and
+# the tail edges' destinations. The engine's state with its tail fold
+# dropped or its row rescale reset gives 5e-3 / 0.09 or more.
+DELTA_REL_L1 = 2e-5
+DELTA_MAX_REL_TOUCHED = 3e-4
+LADDER_LOCAL = 20              # revisions of the localized window
+LADDER_FLOOD = 5000            # revisions of the flooded window
+LADDER_ERROR_BUDGET = 1e-3     # relative L1 (the sublinear workload's)
+TOPICS = 5                     # topic vectors per batch (the reference test)
 
 # 32-bit integer multiply-adds per clock per SM on compute capability 9.0
 # (CUDA C++ Programming Guide, arithmetic instruction throughput table)
@@ -130,6 +165,22 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return a.elapsed_time(b) / iters
 
 
+def device_busy(fn) -> tuple:
+    """``fn()`` under the profiler: its result, the summed duration of
+    the CUDA kernels and copies it ran (ms; one stream, so they do not
+    overlap) and their count."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA]
+    return out, sum(us) / 1e3, len(us)
+
+
 def graph_ms(fn, launches: int, replays: int = 5,
              profiled: bool = False) -> dict:
     """Device time of one call of ``fn`` without the host's pacing:
@@ -141,8 +192,6 @@ def graph_ms(fn, launches: int, replays: int = 5,
     profiler's view of one more replay: the mean duration of its kernels
     (``kernel_ms``, without the gaps between launches) and their count."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -165,13 +214,9 @@ def graph_ms(fn, launches: int, replays: int = 5,
         times.append(a.elapsed_time(b) / launches)
     out = {"ms": sorted(times)[replays // 2]}
     if profiled:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            graph.replay()
-            torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == DeviceType.CUDA]
-        out["kernel_ms"] = sum(us) / len(us) / 1e3 if us else None
-        out["kernel_events"] = len(us)
+        _, busy_ms, events = device_busy(graph.replay)
+        out["kernel_ms"] = busy_ms / events if events else None
+        out["kernel_events"] = events
     del results, graph
     return out
 
@@ -182,9 +227,10 @@ _CTYPES = {"f": "float32", "d": "float64", "i": "int32"}
 
 def _kernel_name(mangled: str) -> str:
     """A readable name for a kernel of field.cu or lane_perm.cu."""
-    m = re.search(r"route_stage_kernelI([fdi])Li(\d)E", mangled)
+    m = re.search(r"route_stage_kernelI([fdi])Li(\d)ELb([01])E", mangled)
     if m:
-        return f"route_stage_{_FORMS[int(m[2])]}_{_CTYPES[m[1]]}"
+        batch = "_batch" if m[3] == "1" else ""
+        return f"route_stage_{_FORMS[int(m[2])]}_{_CTYPES[m[1]]}{batch}"
     for key, name in (("mont_mul_kernel", "mont_mul"),
                       ("add_sub_kernelILi1E", "add_mod"),
                       ("add_sub_kernelILi2E", "sub_mod")):
@@ -240,8 +286,9 @@ def phase_build() -> None:
         usage.update(ptxas_usage(build_log(ROOT / lib)))
     emit("build", nvcc_s=nvcc_s, nvcc_lib=nvcc_lib, field_nvcc_s=field_s,
          field_lib=field_lib, gxx_s=gxx_s, gxx_lib=gxx_lib, usage=usage)
-    check(len(usage) == 12, f"ptxas reported {sorted(usage)}, not the "
-          "nine route-stage kernels and the three field kernels")
+    check(len(usage) == 21, f"ptxas reported {sorted(usage)}, not the "
+          "18 route-stage kernels (three forms, three dtypes, one vector "
+          "or a batch) and the three field kernels")
     spills = {k: u for k, u in usage.items() if u.get("spill_bytes") != 0}
     check(not spills, f"kernels spill: {spills}")
     mm = usage.get("mont_mul", {})
@@ -257,12 +304,18 @@ def phase_build() -> None:
 ROUTE_STAGE_CASES = ((2, 1), (2, 3), (16, 1), (16, 3), (64, 1), (64, 3),
                      (8192, 1), (8192, 3), (1 << 18, 1), (1 << 11, 128),
                      (16, 1 << 14), (64, 128))
+# (m, B) of the topic batch [TOPICS, T, 128] checked on the card: a ragged
+# tile and every (m, B) of the 1M-peer routes, the stages the topic
+# converge runs
+BATCHED_STAGE_CASES = ((16, 3), (1 << 18, 1), (1 << 11, 128), (16, 1 << 14),
+                       (8192, 1), (64, 128))
 
 
 def phase_kernel_vs_plain(device) -> float:
-    """Every form and dtype of the route-stage kernel bit for bit against
-    its plain version on the card, and whole routes against the host's
-    and the plain stages'; returns max |err|."""
+    """Every form and dtype of the route-stage kernel, on one vector and
+    on a topic batch of TOPICS, bit for bit against its plain version on
+    the card, and whole routes against the host's and the plain stages';
+    returns max |err|."""
     import numpy as np
     import torch
 
@@ -281,11 +334,30 @@ def phase_kernel_vs_plain(device) -> float:
     )
 
     rng = np.random.default_rng(1)
+    g = torch.Generator(device=device).manual_seed(2)
     worst = 0.0
     cases = []
+
+    def held(x, idx, form, m):
+        nonlocal worst
+        y = route_stage(x, idx, form, m)
+        torch.cuda.synchronize()
+        ref = route_stage_plain(x, idx, form, m)
+        err = float((y.double() - ref.double()).abs().max())
+        exact = bool(torch.equal(y, ref))
+        worst = max(worst, err)
+        cases.append({"dtype": str(x.dtype).split(".")[1],
+                      "form": _FORMS[form], "m": m, "T": x.shape[-2],
+                      "K": x.shape[0] if x.dim() == 3 else None,
+                      "bit_exact": exact, "max_abs_err": err})
+        check(exact, f"route_stage differs from plain: {cases[-1]}")
+
     shapes = ([(MIDDLE, 1, T) for T in (1, 7, 8192, 262_144, 1000)]
               + [(form, m, m * B) for form in (FORWARD, REVERSE)
                  for m, B in ROUTE_STAGE_CASES])
+    batched = ([(MIDDLE, 1, T) for T in (1000, 8192, 262_144)]
+               + [(form, m, m * B) for form in (FORWARD, REVERSE)
+                  for m, B in BATCHED_STAGE_CASES])
     for dtype in (torch.float32, torch.float64, torch.int32):
         for form, m, T in shapes:
             if dtype == torch.int32:
@@ -293,21 +365,25 @@ def phase_kernel_vs_plain(device) -> float:
                                                   (T, 128), dtype=np.int32))
             else:
                 x = torch.from_numpy(rng.standard_normal((T, 128)))
-            x = x.to(device=device, dtype=dtype)
             idx = torch.from_numpy(
                 rng.integers(0, 128, (T, 128), dtype=np.uint8)).to(device)
-            y = route_stage(x, idx, form, m)
-            torch.cuda.synchronize()
-            ref = route_stage_plain(x, idx, form, m)
-            err = float((y.double() - ref.double()).abs().max())
-            exact = bool(torch.equal(y, ref))
-            worst = max(worst, err)
-            cases.append({"dtype": str(dtype).split(".")[1],
-                          "form": _FORMS[form], "m": m, "T": T,
-                          "bit_exact": exact, "max_abs_err": err})
-            check(exact, f"route_stage differs from plain: {cases[-1]}")
+            held(x.to(device=device, dtype=dtype), idx, form, m)
+        # the topic batch, made on the card (a float64 batch at T =
+        # 262,144 is 1.3 GB)
+        for form, m, T in batched:
+            if dtype == torch.int32:
+                x = torch.randint(-2**31, 2**31 - 1, (TOPICS, T, 128),
+                                  dtype=dtype, device=device, generator=g)
+            else:
+                x = torch.randn(TOPICS, T, 128, dtype=dtype, device=device,
+                                generator=g)
+            idx = torch.randint(0, 128, (T, 128), dtype=torch.uint8,
+                                device=device, generator=g)
+            held(x, idx, form, m)
+            del x
     emit("kernel_vs_plain", cases=len(cases), all_bit_exact=True,
-         max_abs_err=worst, shapes=[[_FORMS[f], m, T] for f, m, T in shapes])
+         max_abs_err=worst, shapes=[[_FORMS[f], m, T] for f, m, T in shapes],
+         batched_shapes=[[TOPICS, _FORMS[f], m, T] for f, m, T in batched])
 
     e = 20
     perm = rng.permutation(1 << e)
@@ -537,9 +613,11 @@ def _sweep_breakdown(arrs, static, s, launches: int = 10) -> dict:
     return out
 
 
-def phase_main_path(device) -> int:
+def phase_main_path(device) -> tuple:
     """The 1M-peer routed converge through TorchRoutedBackend; returns the
-    lane_perm launches it made."""
+    lane_perm launches it made and the graph with its routed operator
+    (``n, src, dst, val, valid, op``), which the churn and topic phases
+    reuse rather than build a second plan."""
     import numpy as np
     import torch
 
@@ -640,7 +718,7 @@ def phase_main_path(device) -> int:
     check(launches == iters * stages_per_sweep,
           f"lane_perm launched {launches} times, expected "
           f"{iters} sweeps × {stages_per_sweep}")
-    return launches
+    return launches, (n, src, dst, val, valid, op)
 
 
 def phase_entry(device) -> None:
@@ -695,6 +773,369 @@ def phase_cli() -> None:
         check(proc.returncode == 0, "CLI sparse-scores failed")
         check(rows == n and abs(total - n * 1000.0) / (n * 1000.0) < 1e-3,
               "CLI output CSV wrong")
+
+
+def _timed_apply(eng, deltas) -> float:
+    """ms of one ``apply_deltas``, its device writes included."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ok = eng.apply_deltas(deltas)
+    torch.cuda.synchronize()
+    check(ok, f"delta batch rejected: {eng.stats}")
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _new_edges(rng, eng, count: int):
+    """``count`` (src, dst) pairs the anchored graph does not have."""
+    import numpy as np
+
+    n = eng.n_now
+    cand = rng.integers(0, n, (4 * count, 2))
+    cand = cand[cand[:, 0] != cand[:, 1]]
+    key = (cand[:, 0].astype(np.int64) << 32) | cand[:, 1]
+    key, first = np.unique(key, return_index=True)
+    cand = cand[first[~np.isin(key, eng.key)]]
+    check(len(cand) >= count, "not enough new edges drawn")
+    return cand[rng.permutation(len(cand))[:count]]
+
+
+def _rel_l1(a, b) -> float:
+    import numpy as np
+
+    return float(np.sum(np.abs(a - b)) / np.sum(np.abs(b)))
+
+
+def _churn_errors(s, s_ref, rows) -> dict:
+    """Scores against a rebuild's: relative L1 over all peers, and the
+    largest relative difference of one peer among ``rows``."""
+    import numpy as np
+
+    return {"rel_l1": _rel_l1(s, s_ref),
+            "max_rel_touched": float(np.max(np.abs(s[rows] - s_ref[rows])
+                                            / np.abs(s_ref[rows])))}
+
+
+def _churn_ok(err: dict) -> bool:
+    return (err["rel_l1"] <= DELTA_REL_L1
+            and err["max_rel_touched"] <= DELTA_MAX_REL_TOUCHED)
+
+
+def phase_delta(device, graph) -> dict:
+    """The churn path at 1M peers on the main path's operator (no second
+    plan build): a ``DeltaEngine`` anchored on it converges cold, absorbs
+    DELTA_BATCHES ``revision_batch``es of DELTA_BATCH_EDGES revisions
+    and one batch of DELTA_INSERTS new edges (the COO tail), and
+    converges warm on the patched operator (the ladder's full rung, B1
+    on every route stage). Checks: no full build in the window, B1's
+    launches = sweeps × 12, and the warm scores against a from-scratch
+    float64 gather converge of the churned edges: within DELTA_PARITY
+    of the largest score (the serve smoke's bound), within DELTA_REL_L1
+    relative L1, and within DELTA_MAX_REL_TOUCHED of each renormalized
+    row's and tail destination's own score. The engine's state with its
+    tail fold dropped, and with its row rescale reset to 1, must each
+    fail those bounds (the bounds catch such a fault). Then the ladder: a localized
+    window (LADDER_LOCAL revisions, ``device_threshold=0``) must be
+    served by ``device_partial``, a flooded one (LADDER_FLOOD, past a
+    frontier limit of a quarter of its frontier) by ``sampled``, each
+    within ``(budget_spent + 2e-6) / alpha`` relative L1 of the full
+    converge from the same published vector."""
+    import numpy as np
+    import torch
+
+    from protocol_tpu_torch.backend import TorchSparseBackend
+    from protocol_tpu_torch.graph import filter_edges
+    from protocol_tpu_torch.incremental import (
+        DeltaEngine,
+        ladder_refresh,
+        revision_batch,
+    )
+    from protocol_tpu_torch.ops import kernels
+    from protocol_tpu_torch.ops.routed import (
+        converge_routed_adaptive,
+        spmv_routed,
+    )
+    from protocol_tpu_torch.utils import trace
+
+    n, src, dst, val, valid, op = graph
+    rng = np.random.default_rng(DELTA_SEED)
+    fsrc, fdst, _, _, _, raw, _ = filter_edges(n, src, dst, val, valid,
+                                               return_raw=True)
+    cur = raw.copy()
+    stages = len(op.edge_stages) + len(op.state_stages)
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    eng = DeltaEngine.anchor(n, src, dst, val, valid, op, alpha=ALPHA,
+                             device=device)
+    anchor_s = time.perf_counter() - t0
+    s_pub, it_cold, d_cold = eng.converge(eng.initial_node_scores(1000.0),
+                                          MAX_ITERATIONS, TOL)
+    eng.take_frontier()
+    builds0 = trace.counter_total("operator_full_builds")
+    apply_ms = [_timed_apply(eng, revision_batch(rng, fsrc, fdst, cur,
+                                                 DELTA_BATCH_EDGES))
+                for _ in range(DELTA_BATCHES)]
+    # host ms per batch by kind (the engine's spans; device writes are
+    # enqueued inside them, the synchronised total is apply_ms)
+    apply_kind_ms = {
+        dict(labels)["kind"]: v["sum"] * 1e3 / DELTA_BATCHES
+        for labels, v in trace.histogram("operator_delta_seconds").series()}
+    new = _new_edges(rng, eng, DELTA_INSERTS)
+    new_val = rng.integers(1, 11, len(new)).astype(np.float64)
+    insert_ms = _timed_apply(eng, [(int(a), int(b), None, float(w))
+                                   for (a, b), w in zip(new, new_val)])
+    builds1 = trace.counter_total("operator_full_builds")
+    t0 = time.perf_counter()
+    s_warm, it_warm, d_warm = eng.converge(s_pub, MAX_ITERATIONS, TOL)
+    warm_s = time.perf_counter() - t0
+    launches = kernels.LAUNCHES["lane_perm"]
+
+    s0 = torch.from_numpy(eng.scores_to_state(s_warm)).to(device)
+    sweep_ms = cuda_ms(lambda: spmv_routed(eng.arrs, eng.static, s0), 10)
+    s_ref, it_ref, _ = TorchSparseBackend(
+        dtype=torch.float64, device=device).converge_edges(
+        n, np.concatenate([fsrc, new[:, 0]]),
+        np.concatenate([fdst, new[:, 1]]), np.concatenate([cur, new_val]),
+        valid, 1000.0, MAX_ITERATIONS, tol=TOL, alpha=ALPHA)
+    parity = float(np.max(np.abs(s_warm - s_ref)) / np.max(np.abs(s_ref)))
+    touched = np.union1d(np.fromiter(eng.dirty_rows, np.int64), new[:, 1])
+    touched = touched[s_ref[touched] > 0]
+    errors = _churn_errors(s_warm, s_ref, touched)
+    # the same warm converge on the engine's state with one repair
+    # undone: the bounds must reject both
+    faults = {}
+    s0_pub = torch.from_numpy(eng.scores_to_state(s_pub)).to(device)
+    for name, undo in (
+            ("tail_fold_dropped", {k: eng.arrs[k][:0] for k in
+                                   ("tail_src", "tail_dst", "tail_w")}),
+            ("row_rescale_dropped", {"inv_row_scale": torch.ones_like(
+                eng.arrs["inv_row_scale"])})):
+        s_bad, _, _ = converge_routed_adaptive(
+            {**eng.arrs, **undo}, eng.static, s0_pub, tol=TOL,
+            max_iterations=MAX_ITERATIONS)
+        faults[name] = _churn_errors(
+            eng.scores_to_nodes(s_bad.cpu().numpy()).astype(np.float64),
+            s_ref, touched)
+        faults[name]["rejected"] = not _churn_ok(faults[name])
+    eng.take_frontier()
+
+    ladder = {}
+    s_pub = s_warm
+    for name, count, want in (("local", LADDER_LOCAL, "device_partial"),
+                              ("flood", LADDER_FLOOD, "sampled")):
+        window_ms = _timed_apply(eng, revision_batch(rng, fsrc, fdst, cur,
+                                                     count))
+        frontier, ok = eng.take_frontier()
+        limit = n if name == "local" else max(len(frontier) // 4, 1)
+        def refresh():
+            return ladder_refresh(eng, s_pub, frontier, TOL,
+                                  MAX_ITERATIONS, limit,
+                                  device_threshold=0, sample_budget=n,
+                                  error_budget=LADDER_ERROR_BUDGET)
+
+        t0 = time.perf_counter()
+        res, mode = refresh()
+        torch.cuda.synchronize()
+        ladder_s = time.perf_counter() - t0
+        # the same refresh again (it leaves the engine as it was) under
+        # the profiler: how much of its wall the card is busy
+        (res2, _), busy_ms, events = device_busy(refresh)
+        check((res is None) == (res2 is None) and (
+            res is None or np.array_equal(res2.scores, res.scores)),
+            f"ladder {name}: a second run of the refresh differs")
+        t0 = time.perf_counter()
+        s_full, it_full, _ = eng.converge(s_pub, MAX_ITERATIONS, TOL)
+        full_s = time.perf_counter() - t0
+        rec = {"revisions": count, "apply_ms": window_ms,
+               "frontier": len(frontier), "partial_ok": ok,
+               "frontier_limit": limit, "mode": mode, "want": want,
+               "ladder_s": ladder_s, "device_busy_ms": busy_ms,
+               "device_events": events, "full_s": full_s,
+               "full_iterations": it_full}
+        if res is not None:
+            bound = (res.budget_spent + 2e-6) / ALPHA
+            rec.update(sweeps=res.sweeps, residual=res.residual,
+                       frontier_peak=res.frontier_peak,
+                       resamples=res.resamples,
+                       budget_spent=res.budget_spent,
+                       rel_l1_vs_full=_rel_l1(res.scores, s_full),
+                       bound=bound)
+        ladder[name] = rec
+        s_pub = s_full
+
+    rec = {
+        "peers": n, "filtered_edges": len(fsrc), "alpha": ALPHA,
+        "anchor_s": anchor_s,
+        "cold_iterations": it_cold, "cold_delta": d_cold,
+        "batches": DELTA_BATCHES, "batch_edges": DELTA_BATCH_EDGES,
+        "apply_ms_median": float(np.median(apply_ms)),
+        "apply_ms": apply_ms, "apply_host_ms_by_kind": apply_kind_ms,
+        "insert_edges": DELTA_INSERTS,
+        "insert_ms": insert_ms, "tail": len(eng.tail_index),
+        "stats": dataclasses.asdict(eng.stats),
+        "full_builds_before": builds0, "full_builds_after": builds1,
+        "warm_iterations": it_warm, "warm_delta": d_warm,
+        "warm_converge_s": warm_s, "patched_sweep_ms": sweep_ms,
+        "lane_perm_launches": launches,
+        "expected_launches": (it_cold + it_warm) * stages,
+        "gather_f64_iterations": it_ref,
+        "max_rel_diff_vs_gather_f64": parity,
+        "touched_peers": len(touched), "vs_gather_f64": errors,
+        "bounds": {"rel_l1": DELTA_REL_L1,
+                   "max_rel_touched": DELTA_MAX_REL_TOUCHED},
+        "faults_vs_gather_f64": faults, "ladder": ladder,
+    }
+    emit("delta", **rec)
+    check(builds1 == builds0 >= 1, f"the churn window paid full builds "
+          f"({builds0} -> {builds1})")
+    check(d_warm <= TOL and np.isfinite(s_warm).all(),
+          f"warm converge stopped at delta {d_warm}")
+    check(launches == (it_cold + it_warm) * stages,
+          f"lane_perm launched {launches} times on the churn path, "
+          f"expected {it_cold + it_warm} sweeps × {stages}")
+    check(parity <= DELTA_PARITY, f"delta-maintained scores differ from "
+          f"the float64 rebuild by {parity} (bound {DELTA_PARITY})")
+    check(_churn_ok(errors), f"delta-maintained scores differ from the "
+          f"float64 rebuild: {errors} (bounds {rec['bounds']})")
+    check(all(f["rejected"] for f in faults.values()),
+          f"the churn bounds pass an engine fault: {faults}")
+    for name, r in ladder.items():
+        check(r["mode"] == r["want"], f"ladder {name}: served by "
+              f"{r['mode']}, expected {r['want']}")
+        check(r["rel_l1_vs_full"] <= r["bound"], f"ladder {name}: rel L1 "
+              f"{r['rel_l1_vs_full']} past {r['bound']}")
+    return rec
+
+
+def phase_topics(device, graph) -> dict:
+    """TOPICS topic vectors through the main path's routed operator in one
+    batched loop (``TorchRoutedBackend.converge_topics``): every route
+    stage one launch for the whole batch. Checks: the batched edge and
+    state routes bit-exact against K single routes and against the plain
+    stages on the same input; each topic within rtol 1e-4 of its own
+    routed converge, iterations ±1; launches = batched sweeps × 12.
+    Times the batched sweep against K single sweeps, and the batched
+    stage (forward, m = T) at both route sizes beside its bound, by
+    graph replay, after holding it against its plain version once."""
+    import numpy as np
+    import torch
+
+    from protocol_tpu_torch.backend import TorchRoutedBackend
+    from protocol_tpu_torch.ops import kernels
+    from protocol_tpu_torch.ops.clos import route_core
+    from protocol_tpu_torch.ops.kernels import (
+        FORWARD,
+        route_stage,
+        route_stage_plain,
+    )
+    from protocol_tpu_torch.ops.routed import routed_arrays, spmv_routed
+
+    n, src, dst, val, valid, op = graph
+    k = TOPICS
+    rng = np.random.default_rng(11)
+    s0k = rng.uniform(0.5, 1.5, (k, n)) * 1000.0
+    backend = TorchRoutedBackend(dtype=torch.float32, device=device)
+    stages = len(op.edge_stages) + len(op.state_stages)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    scores, iters, delta = backend.converge_topics(
+        n, src, dst, val, valid, s0k, MAX_ITERATIONS, tol=TOL, alpha=ALPHA,
+        operator=op)
+    batch_s = time.perf_counter() - t0
+    launches = kernels.LAUNCHES["lane_perm"]
+    singles = []
+    t0 = time.perf_counter()
+    for t in range(k):
+        singles.append(backend.converge_edges(
+            n, src, dst, val, valid, 1000.0, MAX_ITERATIONS, tol=TOL,
+            alpha=ALPHA, operator=op, s0=s0k[t]))
+    singles_s = time.perf_counter() - t0
+    close = [bool(np.allclose(scores[t], s, rtol=1e-4, atol=0.0))
+             for t, (s, _, _) in enumerate(singles)]
+    worst = max(float(np.max(np.abs(scores[t] - s) / np.abs(s)))
+                for t, (s, _, _) in enumerate(singles))
+
+    arrs, static = routed_arrays(op, dtype=torch.float32, alpha=ALPHA,
+                                 device=device)
+    g = torch.Generator(device=device).manual_seed(5)
+    exact, exact_plain = {}, {}
+    for name, key, e, bits in (
+            ("edge_route", "edge_stages", static.edge_e, static.edge_bits),
+            ("state_route", "state_stages", static.state_e,
+             static.state_bits)):
+        x = torch.randn(k, 1 << e, device=device, generator=g)
+        y = route_core(x, arrs[key], 0, e, bits)
+        exact[name] = all(torch.equal(y[t], route_core(x[t], arrs[key], 0,
+                                                       e, bits))
+                          for t in range(k))
+        exact_plain[name] = bool(torch.equal(y, route_core(
+            x, arrs[key], 0, e, bits, stage=route_stage_plain)))
+        del x, y
+    sk = torch.from_numpy(np.stack([op.scores_from_nodes(r)
+                                    for r in s0k])).to(device)
+    sweep_batch_ms = graph_ms(lambda i: spmv_routed(arrs, static, sk),
+                              5)["ms"]
+    sweep_singles_ms = graph_ms(
+        lambda i: [spmv_routed(arrs, static, sk[t]) for t in range(k)],
+        5)["ms"]
+    del arrs
+
+    stage_rows = {}
+    for T, launch_n in ((262_144, 10), (8192, 100)):
+        set_bytes = T * 128 * (4 * k + 1)
+        sets = min(launch_n, max(2, -(-COLD_BYTES // set_bytes)))
+        xs = [torch.randn(k, T, 128, device=device, generator=g)
+              for _ in range(sets)]
+        idxs = [torch.randint(0, 128, (T, 128), device=device, generator=g,
+                              dtype=torch.uint8) for _ in range(sets)]
+        stage_exact = bool(torch.equal(
+            route_stage(xs[0], idxs[0], FORWARD, T),
+            route_stage_plain(xs[0], idxs[0], FORWARD, T)))
+        ms = graph_ms(lambda i: route_stage(xs[i % sets], idxs[i % sets],
+                                            FORWARD, T), launch_n)["ms"]
+        single_ms = graph_ms(lambda i: route_stage(
+            xs[i % sets][0], idxs[i % sets], FORWARD, T), launch_n)["ms"]
+        nbytes = T * 128 * (8 * k + 1)
+        stage_rows[T] = {"T": T, "K": k, "form": "forward", "m": T,
+                         "bit_exact_vs_plain": stage_exact,
+                         "ms": ms, "one_vector_ms": single_ms,
+                         "bytes": nbytes,
+                         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        stage_rows[T]["share_of_bound"] = \
+            stage_rows[T]["bound_ms"] / ms
+        del xs, idxs
+
+    rec = {"topics": k, "peers": n, "iterations": iters.tolist(),
+           "delta": delta.tolist(), "batch_converge_s": batch_s,
+           "single_iterations": [int(i) for _, i, _ in singles],
+           "singles_converge_s": singles_s,
+           "max_rel_diff_vs_single": worst, "close_rtol_1e-4": close,
+           "routes_bit_exact_vs_single": exact,
+           "routes_bit_exact_vs_plain_stages": exact_plain,
+           "lane_perm_launches": launches,
+           "expected_launches": int(max(iters)) * stages,
+           "sweep_batch_ms": sweep_batch_ms,
+           "sweep_k_singles_ms": sweep_singles_ms,
+           "batched_stage": list(stage_rows.values())}
+    emit("topics", **rec)
+    check(all(exact.values()), f"batched routes differ from single: {exact}")
+    check(all(exact_plain.values()), f"batched routes differ from the plain "
+          f"stages': {exact_plain}")
+    check(all(r["bit_exact_vs_plain"] for r in stage_rows.values()),
+          "the timed batched stage differs from its plain version")
+    check(all(close), f"topic scores differ from their own converges "
+          f"(max rel {worst})")
+    check(all(abs(int(i) - s[1]) <= 1 for i, s in zip(iters, singles)),
+          f"topic iterations {iters.tolist()} vs single "
+          f"{[s[1] for s in singles]}")
+    check(launches == int(max(iters)) * stages,
+          f"lane_perm launched {launches} times for the topic batch, "
+          f"expected {int(max(iters))} sweeps × {stages}")
+    return rec
 
 
 def _moduli() -> dict:
@@ -1143,6 +1584,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     device = torch.device("cuda")
+    from protocol_tpu_torch.utils import trace
+
+    trace.enable()  # in memory: the churn phase reads the build counter
     smi = nvidia_smi_line()
     emit("card", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
@@ -1152,7 +1596,10 @@ def main() -> int:
         phase_build()
         max_err = phase_kernel_vs_plain(device)
         times = phase_kernel_times(device)
-        launches = phase_main_path(device)
+        launches, graph = phase_main_path(device)
+        delta = phase_delta(device, graph)
+        topics = phase_topics(device, graph)
+        del graph
         phase_entry(device)
         phase_cli()
         field_err = phase_field_kernels_vs_plain(device)
@@ -1175,6 +1622,10 @@ def main() -> int:
         "bound_ms": edge["bound_ms"],
         "bound_by": "bytes",
         "library_ms": edge["library_ms"],
+        "launches_by_path": {"converge": launches,
+                             "churn": delta["lane_perm_launches"],
+                             "topics": topics["lane_perm_launches"]},
+        "batched": topics["batched_stage"],
     }] + [_field_record(k, field_launches[k], field_err[k], field_times)
           for k in ("mont_mul", "add_mod", "sub_mod")]}), flush=True)
     emit("done", wall_s=time.perf_counter() - t_start)

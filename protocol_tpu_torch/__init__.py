@@ -10,9 +10,13 @@ so each counterpart is easy to find; nothing here imports ``jax`` or
 - ``native``   — the C++ Clos planner, built with g++ at first use
 - ``ops``      — converge core, Clos planner/executor, routed operator,
                  and the hand-written kernels
-- ``backend``  — the ConvergeBackend seam on torch
+- ``backend``  — the ConvergeBackend seam on torch (and the topic batch)
+- ``incremental`` — the delta engine and the refresh ladder (churn
+                 without a routing-plan rebuild)
+- ``utils.trace`` — spans and typed instruments, the reference's names
 - ``entry``    — the flagship step (20 routed sweeps on a 4096-peer graph)
-- ``cli``      — ``python -m protocol_tpu_torch.cli sparse-scores``
+- ``cli``      — ``python -m protocol_tpu_torch.cli sparse-scores`` and
+                 ``profile``
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no device given and no GPU present they raise.

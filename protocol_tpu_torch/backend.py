@@ -12,7 +12,10 @@ semantics) and returns real-valued scores as numpy, in node order:
   run the hand-written CUDA kernel on the card.
 
 The torch backends run on ``cuda`` unless constructed with
-``device="cpu"``; with no device given and no GPU they raise.
+``device="cpu"``; with no device given and no GPU they raise. Every
+converge runs through ``ops.converge.timed_converge``, so it reports the
+``ptpu_converge_*`` instruments under ``backend`` ``torch-sparse`` or
+``torch-routed``.
 """
 
 from __future__ import annotations
@@ -122,6 +125,7 @@ class TorchSparseBackend(_TorchBackend):
             converge_sparse_fixed_semiring,
             operator_arrays,
             resolve_semiring,
+            timed_converge,
         )
 
         sr = resolve_semiring(semiring)
@@ -135,12 +139,47 @@ class TorchSparseBackend(_TorchBackend):
             s0 = torch.as_tensor(np.asarray(s0), device=self.device).to(
                 self.dtype)
         if tol is None:
-            scores = converge_sparse_fixed_semiring(arrs, s0, sr,
-                                                    num_iterations)
+            scores = timed_converge(
+                "torch-sparse", n, len(src),
+                lambda: converge_sparse_fixed_semiring(arrs, s0, sr,
+                                                       num_iterations),
+                fixed_iterations=num_iterations, semiring=sr.name)
             return scores.cpu().numpy()
-        scores, iters, delta = converge_sparse_adaptive_semiring(
-            arrs, s0, sr, tol=tol, max_iterations=num_iterations)
+        scores, iters, delta = timed_converge(
+            "torch-sparse", n, len(src),
+            lambda: converge_sparse_adaptive_semiring(
+                arrs, s0, sr, tol=tol, max_iterations=num_iterations),
+            semiring=sr.name)
         return scores.cpu().numpy(), int(iters), float(delta)
+
+    def converge_topics(
+        self, n, src, dst, val, valid, s0_topics, max_iterations,
+        tol=1e-6, alpha: float = 0.0, semiring=None,
+    ):
+        """Topic-batched adaptive converge: the K node-order topic
+        vectors ``s0_topics[K, n]`` through one operator, each topic's
+        trajectory independent. Returns
+        ``(scores[K, n], iters[K], delta[K])`` as numpy."""
+        from .graph import build_operator
+        from .ops.converge import (
+            converge_sparse_topics,
+            operator_arrays,
+            resolve_semiring,
+            timed_converge,
+        )
+
+        sr = resolve_semiring(semiring)
+        s0k = _topic_starts(s0_topics, n)
+        op = build_operator(n, src, dst, val, valid)
+        arrs = operator_arrays(op, dtype=self.dtype, alpha=alpha,
+                               device=self.device)
+        s0k = torch.as_tensor(s0k, device=self.device).to(self.dtype)
+        scores, iters, delta = timed_converge(
+            "torch-sparse", n, len(src),
+            lambda: converge_sparse_topics(arrs, s0k, sr, tol=tol,
+                                           max_iterations=max_iterations),
+            semiring=sr.name)
+        return scores.cpu().numpy(), iters, delta
 
 
 class TorchRoutedBackend(TorchSparseBackend):
@@ -154,7 +193,7 @@ class TorchRoutedBackend(TorchSparseBackend):
         self, n, src, dst, val, valid, initial_score, num_iterations, tol=None,
         alpha: float = 0.0, operator=None, s0=None, semiring=None,
     ):
-        from .ops.converge import resolve_semiring
+        from .ops.converge import resolve_semiring, timed_converge
         from .ops.routed import (
             build_routed_operator,
             converge_routed_adaptive_semiring,
@@ -175,10 +214,58 @@ class TorchRoutedBackend(TorchSparseBackend):
             start = op.scores_from_nodes(np.asarray(s0), dtype=np_dtype)
         s0 = torch.from_numpy(start).to(self.device)
         if tol is None:
-            scores = converge_routed_fixed_semiring(arrs, static, s0, sr,
-                                                    num_iterations)
+            scores = timed_converge(
+                "torch-routed", n, int(op.nnz),
+                lambda: converge_routed_fixed_semiring(arrs, static, s0, sr,
+                                                       num_iterations),
+                fixed_iterations=num_iterations, semiring=sr.name)
             return op.scores_for_nodes(scores.cpu().numpy())
-        scores, iters, delta = converge_routed_adaptive_semiring(
-            arrs, static, s0, sr, tol=tol, max_iterations=num_iterations)
+        scores, iters, delta = timed_converge(
+            "torch-routed", n, int(op.nnz),
+            lambda: converge_routed_adaptive_semiring(
+                arrs, static, s0, sr, tol=tol,
+                max_iterations=num_iterations),
+            semiring=sr.name)
         return (op.scores_for_nodes(scores.cpu().numpy()), int(iters),
                 float(delta))
+
+    def converge_topics(
+        self, n, src, dst, val, valid, s0_topics, max_iterations,
+        tol=1e-6, alpha: float = 0.0, operator=None, semiring=None,
+    ):
+        """Routed topic batch: K node-order topic vectors through one
+        routed operator, so one routing-plan build serves all K topics
+        and each route stage is one launch for the batch. Returns
+        ``(scores[K, n], iters[K], delta[K])`` as numpy."""
+        from .ops.converge import resolve_semiring, timed_converge
+        from .ops.routed import (
+            build_routed_operator,
+            converge_routed_topics,
+            routed_arrays,
+        )
+
+        sr = resolve_semiring(semiring)
+        s0k = _topic_starts(s0_topics, n)
+        op = operator
+        if op is None:
+            op = build_routed_operator(n, src, dst, val, valid)
+        arrs, static = routed_arrays(op, dtype=self.dtype, alpha=alpha,
+                                     device=self.device)
+        np_dtype = torch.empty(0, dtype=self.dtype).numpy().dtype
+        s0k = torch.from_numpy(np.stack(
+            [op.scores_from_nodes(row, dtype=np_dtype) for row in s0k])
+        ).to(self.device)
+        scores, iters, delta = timed_converge(
+            "torch-routed", n, int(op.nnz),
+            lambda: converge_routed_topics(arrs, static, s0k, sr, tol=tol,
+                                           max_iterations=max_iterations),
+            semiring=sr.name)
+        return (np.stack([op.scores_for_nodes(row)
+                          for row in scores.cpu().numpy()]), iters, delta)
+
+
+def _topic_starts(s0_topics, n: int) -> np.ndarray:
+    s0k = np.asarray(s0_topics, dtype=np.float64)
+    if s0k.ndim != 2 or s0k.shape[1] != n:
+        raise ValueError(f"s0_topics must be [K, {n}] (got {s0k.shape})")
+    return s0k

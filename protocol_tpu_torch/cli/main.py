@@ -1,8 +1,13 @@
-"""``sparse-scores``: converge a raw edge-list trust graph on torch.
+"""The port's CLI: ``sparse-scores`` and ``profile`` on torch.
 
-The port's counterpart of the reference CLI's ``sparse-scores`` verb,
-with the same arguments, output CSV and exit codes, plus ``--device``.
-The sharded ``--checkpoint-dir`` mode is not ported yet and is refused.
+- ``sparse-scores`` converges a raw edge-list trust graph: the
+  reference CLI's verb, with the same arguments, output CSV and exit
+  codes, plus ``--device``. The sharded ``--checkpoint-dir`` mode is not
+  ported yet and is refused.
+- ``profile`` runs a workload under the instrument layer and prints the
+  per-stage report (``cli/profilecmd.py``): the reference's arguments
+  plus ``--device``; ``--workload refresh`` runs, ``prove`` and
+  ``daemon`` are refused until their slices are ported.
 """
 
 from __future__ import annotations
@@ -58,6 +63,49 @@ def build_parser() -> argparse.ArgumentParser:
                         "reference CLI's)")
     p.add_argument("--out", default="sparse-scores.csv",
                    help="output CSV (peer_id,score), relative to assets")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda; 'cpu' to run on the "
+                        "CPU)")
+
+    p = sub.add_parser(
+        "profile",
+        help="run a workload under sync-span tracing (+ optional "
+             "torch.profiler capture) and emit a merged per-stage report")
+    p.add_argument("--workload", choices=["prove", "refresh", "daemon"],
+                   default="refresh",
+                   help="refresh: synthetic trust-graph converge through "
+                        "a backend; prove and daemon are not ported yet "
+                        "(refused)")
+    p.add_argument("--k", type=int, default=7,
+                   help="prove: domain exponent (synthetic circuit)")
+    p.add_argument("--gates", type=int, default=64,
+                   help="prove: synthetic gate count")
+    p.add_argument("--n", type=int, default=2000,
+                   help="refresh: peer count")
+    p.add_argument("--edges-per-node", type=int, default=4,
+                   help="refresh: BA attachment degree")
+    p.add_argument("--engine", choices=["gather", "routed"],
+                   default="gather", help="refresh: SpMV engine")
+    p.add_argument("--tol", type=float, default=1e-6,
+                   help="refresh: stopping tolerance")
+    p.add_argument("--repeat", type=int, default=1,
+                   help="run the workload N times (warm steady-state)")
+    p.add_argument("--url", help="daemon: base URL of the live daemon")
+    p.add_argument("--seconds", type=float, default=5.0,
+                   help="daemon: capture window length")
+    p.add_argument("--xprof", metavar="DIR",
+                   help="capture a torch.profiler timeline into DIR, "
+                        "joinable with the span stream by trace id")
+    p.add_argument("--jsonl", metavar="PATH",
+                   help="stream spans as JSONL to PATH")
+    p.add_argument("--json", metavar="PATH",
+                   help="write the per-stage report as JSON")
+    p.add_argument("--no-sync", action="store_true",
+                   help="keep asynchronous launches instead of sync-span "
+                        "attribution")
+    p.add_argument("--min-coverage", type=float, default=0.0,
+                   help="exit 1 unless the named prover stages cover at "
+                        "least this fraction of the prove wall time")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' to run on the "
                         "CPU)")
@@ -162,11 +210,20 @@ def handle_sparse_scores(args, assets: Path) -> int:
 
 
 def main(argv=None) -> int:
+    from ..utils.errors import EigenError
+    from .profilecmd import handle_profile
+
     args = build_parser().parse_args(argv)
-    assets = Path(args.assets or os.environ.get("EIGEN_ASSETS", "assets"))
-    assets.mkdir(parents=True, exist_ok=True)
     try:
+        if args.command == "profile":
+            try:
+                return handle_profile(args)
+            except RuntimeError as e:  # no GPU and no --device
+                raise CliError(str(e)) from e
+        assets = Path(args.assets or os.environ.get("EIGEN_ASSETS",
+                                                    "assets"))
+        assets.mkdir(parents=True, exist_ok=True)
         return handle_sparse_scores(args, assets)
-    except CliError as e:
+    except (CliError, EigenError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1

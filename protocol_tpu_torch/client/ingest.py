@@ -20,6 +20,9 @@ Batches pad to the next power of two, as the reference's do; above
 software-pipelined. Outputs are host objects (PublicKey, 20-byte
 addresses) identical to the scalar path. Every entry point takes
 ``device=None``, which means the GPU, and raises without one.
+``recover_signers_batch`` runs its stages under the reference's spans
+(``ingest.pipeline``, ``ingest.hash_batch``, ``ingest.recover_batch``,
+``ingest.verify_batch``).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import numpy as np
 from ..crypto.secp256k1 import AffinePoint, PublicKey
 from ..device import resolve_device
 from ..models.eigentrust import HASHER_WIDTH
+from ..utils import trace
 
 
 # host seconds of the per-lane address derivation (a keccak each), summed
@@ -163,31 +167,38 @@ def recover_signers_batch(attestations: Sequence,
                 [s.rec_id for s in sigs[lo:hi]] + [0] * pad_c))
             spans.append(hi - lo)
         xs, ys, valid_parts = [], [], []
-        for (msgs_c, (cx, cy, cvalid)), c, (crs, css, _) in zip(
-                hash_recover_pipeline(row_chunks, sig_chunks, device=dev),
-                spans, sig_chunks):
-            if full_verify:
-                # audit mode: the synchronous verify ladder between
-                # chunks serializes the pipeline
-                ok = verify_batch(crs, css, msgs_c, list(zip(cx, cy)),
-                                  device=dev)
-                cvalid = cvalid & ok
-            xs.extend(cx[:c])
-            ys.extend(cy[:c])
-            valid_parts.append(cvalid[:c])
+        with trace.span("ingest.pipeline", n=k, chunks=len(spans)):
+            for (msgs_c, (cx, cy, cvalid)), c, (crs, css, _) in zip(
+                    hash_recover_pipeline(row_chunks, sig_chunks,
+                                          device=dev),
+                    spans, sig_chunks):
+                if full_verify:
+                    # audit mode: the synchronous verify ladder between
+                    # chunks serializes the pipeline
+                    with trace.span("ingest.verify_batch", n=c):
+                        ok = verify_batch(crs, css, msgs_c,
+                                          list(zip(cx, cy)), device=dev)
+                    cvalid = cvalid & ok
+                xs.extend(cx[:c])
+                ys.extend(cy[:c])
+                valid_parts.append(cvalid[:c])
         valid = np.concatenate(valid_parts)
     else:
         pad = _pow2_bucket(k) - k
-        msgs = [int(h) for h in attestation_hashes_batch(attestations,
-                                                         device=dev)]
+        with trace.span("ingest.hash_batch", n=k):
+            msgs = [int(h) for h in attestation_hashes_batch(attestations,
+                                                             device=dev)]
         sigs = [s.signature.to_signature() for s in attestations]
         rs = [s.r for s in sigs] + [1] * pad
         ss = [s.s for s in sigs] + [1] * pad
         rec = [s.rec_id for s in sigs] + [0] * pad
         msgs_p = msgs + [1] * pad
-        xs, ys, valid = recover_batch(rs, ss, rec, msgs_p, device=dev)
+        with trace.span("ingest.recover_batch", n=k):
+            xs, ys, valid = recover_batch(rs, ss, rec, msgs_p, device=dev)
         if full_verify:
-            ok = verify_batch(rs, ss, msgs_p, list(zip(xs, ys)), device=dev)
+            with trace.span("ingest.verify_batch", n=k):
+                ok = verify_batch(rs, ss, msgs_p, list(zip(xs, ys)),
+                                  device=dev)
             valid = valid & ok
         xs, ys, valid = xs[:k], ys[:k], valid[:k]
 

@@ -18,10 +18,19 @@
 // (csrc/clos_plan.cpp). Indices are uint8, values float32, float64 or
 // int32.
 //
+// Topic batch: x and out may hold K arrays of [T, 128] back to back that
+// share one idx (K score vectors through one operator, the reference's
+// vmap of the sweep). One launch runs the stage for all K: blockIdx.y
+// picks the array, and the K blocks of a tile read the same index bytes.
+// K = 1 runs an instantiation without that offset: compiled in, it made
+// the single-vector stage 3-7 % slower on an H100
+// (tools/torch_stage_ab.py).
+//
 // Bound: device memory. Each element is read once (4 or 8 bytes), its
 // index once (1 byte) and written once: 9 bytes per element in float32,
-// 17 in float64, and no arithmetic to speak of. The transpose adds no
-// bytes, since it happens in shared memory. At the 1M-peer converge's
+// 17 in float64, and no arithmetic to speak of; a batch of K needs the
+// index bytes once, 8K + 1 bytes per float32 element. The transpose
+// adds no bytes, since it happens in shared memory. At the 1M-peer converge's
 // edge route (T = 262,144, seven stages) the bound is 0.0901 ms a stage
 // on an H100 SXM (3.35 TB/s); the state route's five stages (T = 8,192)
 // are bound at 0.0028 ms, about a launch's fixed cost.
@@ -91,7 +100,7 @@ __device__ __forceinline__ int64_t tposed(int64_t t0, int k, int lg_s,
            (t & ((int64_t(1) << lg_m) - 1));
 }
 
-template <typename T, int kForm>
+template <typename T, int kForm, bool kBatch>
 __global__ void __launch_bounds__(kThreads)
 route_stage_kernel(const T *__restrict__ x, const uint8_t *__restrict__ idx,
                    T *__restrict__ out, int64_t rows, int lg_m) {
@@ -102,6 +111,11 @@ route_stage_kernel(const T *__restrict__ x, const uint8_t *__restrict__ idx,
     __shared__ __align__(16) T tile[kRows * kPitch];
     __shared__ uint32_t ids[kForm == kForward ? kRows * kIdxPitch : 1];
 
+    if (kBatch) {  // blockIdx.y: one array of the batch, all sharing idx
+        const int64_t shift = (int64_t)blockIdx.y * rows * kLanes;
+        x += shift;
+        out += shift;
+    }
     const int64_t t0 = (int64_t)blockIdx.x * kRows;
     const int64_t left = rows - t0;
     const int n = (int)(left < kRows ? left : kRows) * kLanes;
@@ -167,15 +181,20 @@ route_stage_kernel(const T *__restrict__ x, const uint8_t *__restrict__ idx,
 
 template <typename T>
 int launch(int form, const void *x, const uint8_t *idx, void *out,
-           int64_t rows, int lg_m, cudaStream_t stream) {
+           int64_t rows, int lg_m, int batch, cudaStream_t stream) {
     using Kernel = void (*)(const T *, const uint8_t *, T *, int64_t, int);
-    const Kernel kernels[] = {route_stage_kernel<T, kForward>,
-                              route_stage_kernel<T, kMiddle>,
-                              route_stage_kernel<T, kReverse>};
+    const Kernel kernels[2][3] = {
+        {route_stage_kernel<T, kForward, false>,
+         route_stage_kernel<T, kMiddle, false>,
+         route_stage_kernel<T, kReverse, false>},
+        {route_stage_kernel<T, kForward, true>,
+         route_stage_kernel<T, kMiddle, true>,
+         route_stage_kernel<T, kReverse, true>}};
     if (form < kForward || form > kReverse) return -1;
     constexpr int kRows = kTileBytes / (kLanes * (int)sizeof(T));
     const int64_t blocks = (rows + kRows - 1) / kRows;
-    kernels[form]<<<(unsigned)blocks, kThreads, 0, stream>>>(
+    const dim3 grid((unsigned)blocks, (unsigned)batch);
+    kernels[batch > 1][form]<<<grid, kThreads, 0, stream>>>(
         static_cast<const T *>(x), idx, static_cast<T *>(out), rows, lg_m);
     return (int)cudaGetLastError();
 }
@@ -185,22 +204,28 @@ int launch(int form, const void *x, const uint8_t *idx, void *out,
 extern "C" {
 
 // dtype: 0 float32, 1 float64, 2 int32; form: 0 forward, 1 middle,
-// 2 reverse. x, idx and out are contiguous [rows, 128] arrays on the
-// device, each 16-byte aligned; rows >= 1. lg_m is log2 of the forward
-// or reverse form's m, 1 <= lg_m, with rows a multiple of m; the middle
-// form ignores it. Returns 0, a cudaError_t from the launch, or -1 for a
-// bad argument.
+// 2 reverse. idx is a contiguous [rows, 128] array on the device, x and
+// out contiguous [batch, rows, 128] arrays, each 16-byte aligned;
+// rows >= 1, 1 <= batch <= 65535. lg_m is log2 of the forward or reverse
+// form's m, 1 <= lg_m, with rows a multiple of m; the middle form
+// ignores it. Returns 0, a cudaError_t from the launch, or -1 for a bad
+// argument.
 int route_stage(int dtype, int form, const void *x, const uint8_t *idx,
-                void *out, int64_t rows, int lg_m, void *stream) {
+                void *out, int64_t rows, int lg_m, int batch,
+                void *stream) {
     if (rows < 1 || rows > (int64_t)0x7fffffff) return -1;
+    if (batch < 1 || batch > 65535) return -1;
     if (form != kMiddle &&
         (lg_m < 1 || lg_m > 31 || (rows & ((int64_t(1) << lg_m) - 1))))
         return -1;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (dtype) {
-        case 0: return launch<float>(form, x, idx, out, rows, lg_m, s);
-        case 1: return launch<double>(form, x, idx, out, rows, lg_m, s);
-        case 2: return launch<int32_t>(form, x, idx, out, rows, lg_m, s);
+        case 0:
+            return launch<float>(form, x, idx, out, rows, lg_m, batch, s);
+        case 1:
+            return launch<double>(form, x, idx, out, rows, lg_m, batch, s);
+        case 2:
+            return launch<int32_t>(form, x, idx, out, rows, lg_m, batch, s);
         default: return -1;
     }
 }

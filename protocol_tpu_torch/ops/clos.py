@@ -321,11 +321,15 @@ def route_core(x: torch.Tensor, stages, si: int, e_sub: int, bits: tuple,
                stage=route_stage) -> torch.Tensor:
     """Apply a route program to ``x`` of length B·2^e_sub (B independent
     subproblems batched contiguously: every stage works on El-sized
-    chunks, so subproblem boundaries are never crossed). ``stage`` runs
-    one stage (``route_stage``, or its plain version)."""
-    E = x.numel()
+    chunks, so subproblem boundaries are never crossed), or to a topic
+    batch ``[K, B·2^e_sub]`` of such vectors, all routed by the same
+    stages. ``stage`` runs one stage (``route_stage``, or its plain
+    version)."""
+    shape = x.shape
+    rows = shape[:-1] + (-1, 128)
     for s, form, m in route_forms(e_sub, bits, si):
-        x = stage(x.view(-1, 128), stages[s].view(-1, 128), form, m).view(E)
+        x = stage(x.view(rows), stages[s].view(-1, 128), form,
+                  m).view(shape)
     return x
 
 

@@ -7,16 +7,26 @@
 - the gather path: bucketed-ELL ``spmv`` over the operator from
   ``protocol_tpu_torch.graph.build_operator``. On the card it is plain
   torch indexing, the in-package yardstick for the routed path;
-- the dense path: ``s ← s @ C``.
+- the dense path: ``s ← s @ C``;
+- the instrument seam every backend reports through
+  (``record_converge_stats``, ``record_refresh_scope``,
+  ``timed_converge``), with the reference's instrument names and labels;
+- the topic batch (``converge_sparse_topics``, ``adaptive_loop_topics``):
+  K score vectors ``[K, n]`` through one operator;
+- ``partial_sweep_device``: one frontier-restricted sweep, the device
+  half of the refresh ladder (``incremental.device``).
 
 PyTorch runs eagerly, so the reference's ``fori_loop``/``while_loop``
 become Python loops. The adaptive loop reads one scalar (the stopping
-delta) back to the host per sweep.
+delta) back to the host per sweep. The sweep functions take a score
+vector ``[n]`` or a batch ``[K, n]``: every reduction runs over the last
+axis, so each row of a batch is an independent vector.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -24,6 +34,7 @@ import torch
 
 from ..device import resolve_device
 from ..graph import EllOperator
+from ..utils import trace
 
 
 class Semiring(NamedTuple):
@@ -76,6 +87,84 @@ def semiring_tail(sr: Semiring, arrs: dict, s, base):
     if sr.name == "plusmul":
         return dangling_and_damping(arrs, s, base)
     return base * arrs["valid"]
+
+
+def record_converge_stats(backend: str, iters: int, delta, seconds: float,
+                          n: int | None = None,
+                          semiring: str = "plusmul") -> None:
+    """Shared converge observability: every backend reports its exit
+    through this one seam, labelled ``{backend, semiring}``. Emits
+
+    - ``ptpu_converge_iterations{backend,semiring}``: the iterations the
+      power method ran;
+    - ``ptpu_converge_residual{backend,semiring}``: the final relative-L1
+      delta (adaptive runs only; fixed-iteration runs pass
+      ``delta=None``);
+    - ``ptpu_converge_sweep_seconds{backend,semiring}``: mean wall time
+      per sweep, total/iters.
+    """
+    iters = int(iters)
+    trace.gauge("converge_iterations").set(iters, backend=backend,
+                                           semiring=semiring)
+    if delta is not None:
+        trace.gauge("converge_residual").set(float(delta), backend=backend,
+                                             semiring=semiring)
+    if iters > 0:
+        trace.histogram("converge_sweep_seconds").observe(
+            seconds / iters, backend=backend, semiring=semiring)
+    trace.event("converge.done", backend=backend, iterations=iters,
+                semiring=semiring, seconds=round(seconds, 6),
+                **({} if n is None else {"n": n}),
+                **({} if delta is None else {"residual": float(delta)}))
+
+
+def record_refresh_scope(mode: str) -> None:
+    """The one seam that says how a refresh swept the graph, on the
+    ladder ``partial → device_partial → sampled → full → rebuild``
+    (``incremental.ladder_refresh`` serves the first three, a full
+    patched-operator converge the fourth, a fresh operator build the
+    last). Emits ``ptpu_refresh_sweep_scope_total{mode}``."""
+    trace.counter("refresh_sweep_scope").inc(mode=mode)
+    trace.event("refresh.sweep_scope", mode=mode)
+
+
+def _sync_cuda(out) -> None:
+    """Wait for the CUDA work behind a converge's result: the tensors in
+    ``out`` (a tensor or a tuple of tensors and numbers)."""
+    for x in out if isinstance(out, tuple) else (out,):
+        if isinstance(x, torch.Tensor) and x.is_cuda:
+            torch.cuda.synchronize(x.device)
+
+
+def timed_converge(backend: str, n: int, edges: int, call,
+                   fixed_iterations: int | None = None,
+                   semiring: str = "plusmul"):
+    """The one instrumentation wrapper every backend runs its converge
+    through: executes ``call`` under the ``converge.edges`` span and
+    synchronises the result's CUDA device before the span closes —
+    torch returns at launch, so an unsynchronised wall time would record
+    the launches, not the sweeps. (The reference's ``signature`` and
+    compile watch have nothing to watch on torch: nothing compiles.)
+
+    ``call`` returns ``scores`` in fixed-iteration mode (pass
+    ``fixed_iterations``) or ``(scores, iters, delta)`` in adaptive
+    mode, where a topic batch gives per-topic ``iters``/``delta``: the
+    recorded count and residual are then the worst topic's. Returns
+    ``call``'s result unchanged."""
+    t0 = time.perf_counter()
+    with trace.span("converge.edges", backend=backend, n=n, edges=edges):
+        out = call()
+        _sync_cuda(out)
+    dt = time.perf_counter() - t0
+    if fixed_iterations is not None:
+        record_converge_stats(backend, fixed_iterations, None, dt, n=n,
+                              semiring=semiring)
+    else:
+        _, iters, delta = out
+        record_converge_stats(backend, int(np.max(np.asarray(iters))),
+                              float(np.max(np.asarray(delta))), dt, n=n,
+                              semiring=semiring)
+    return out
 
 
 def warm_start_scores(prev, n: int, valid, initial_score: float):
@@ -132,14 +221,15 @@ def dangling_and_damping(arrs: dict, s: torch.Tensor, base: torch.Tensor
     """Shared tail of every SpMV: dangling peers redistribute uniformly
     to every other valid peer (an implicit rank-1 update), then damped
     pre-trust mixing scaled by the current total mass, so Σs is
-    conserved for any α."""
-    d_mass = torch.sum(s * arrs["dangling"])
+    conserved for any α. ``s`` and ``base`` are ``[n]`` or ``[K, n]``;
+    the masses are taken per row."""
+    d_mass = torch.sum(s * arrs["dangling"], dim=-1, keepdim=True)
     denom = torch.clamp(arrs["n_valid"] - 1.0, min=1.0)
     corr = (d_mass - arrs["dangling"] * s) / denom
     propagated = base + corr * arrs["valid"]
 
     alpha = arrs["alpha"]
-    total = torch.sum(s * arrs["valid"])
+    total = torch.sum(s * arrs["valid"], dim=-1, keepdim=True)
     return (1.0 - alpha) * propagated + alpha * arrs["pretrust"] * total
 
 
@@ -148,10 +238,10 @@ def spmv(arrs: dict, s: torch.Tensor) -> torch.Tensor:
     per bucket gather source scores, weight, reduce along the width;
     concatenate (plus a zero slot for in-degree-0 rows) and restore row
     order."""
-    parts = [(val * s[idx]).sum(dim=-1)
+    parts = [(val * s[..., idx]).sum(dim=-1)
              for idx, val in zip(arrs["bucket_idx"], arrs["bucket_val"])]
-    parts.append(s.new_zeros(1))
-    base = torch.cat(parts)[arrs["row_pos"]]
+    parts.append(s.new_zeros(s.shape[:-1] + (1,)))
+    base = torch.cat(parts, dim=-1)[..., arrs["row_pos"]]
     return dangling_and_damping(arrs, s, base)
 
 
@@ -159,10 +249,10 @@ def spmv_semiring(arrs: dict, s: torch.Tensor, sr: Semiring) -> torch.Tensor:
     """One generalized gather sweep: ``new_s[i] = add_j mul(w_ji, s[j])``
     plus the semiring tail. Pad lanes carry idx 0 and weight 0, so
     ``mul`` yields ``sr.zero`` on them."""
-    parts = [sr.reduce(sr.mul(val, s[idx]), dim=-1)
+    parts = [sr.reduce(sr.mul(val, s[..., idx]), dim=-1)
              for idx, val in zip(arrs["bucket_idx"], arrs["bucket_val"])]
-    parts.append(s.new_full((1,), sr.zero))
-    base = torch.cat(parts)[arrs["row_pos"]]
+    parts.append(s.new_full(s.shape[:-1] + (1,), sr.zero))
+    base = torch.cat(parts, dim=-1)[..., arrs["row_pos"]]
     return semiring_tail(sr, arrs, s, base)
 
 
@@ -205,6 +295,34 @@ def adaptive_loop(step, s0: torch.Tensor, tol: float, max_iterations: int,
     return s, i, delta
 
 
+def adaptive_loop_topics(step, s0k: torch.Tensor, tol: float,
+                         max_iterations: int):
+    """:func:`adaptive_loop` for a batch of K independent vectors
+    ``s0k[K, n]`` through one ``step``: each topic keeps its own norm,
+    delta and iteration count, and a topic whose delta reached ``tol``
+    (or whose count reached ``max_iterations``) is frozen while the
+    others sweep on, so its trajectory and count are those of its own
+    converge (the reference's ``vmap`` of the while loop select-masks
+    the same way). Returns ``(scores[K, n], iters[K], delta[K])``, the
+    last two as numpy arrays (K deltas are read back per sweep)."""
+    k = s0k.shape[0]
+    norm = torch.clamp(torch.sum(torch.abs(s0k), dim=-1), min=1.0)
+    tol = float(torch.tensor(tol, dtype=s0k.dtype))
+    s = s0k
+    iters = np.zeros(k, dtype=np.int64)
+    delta = np.full(k, math.inf)
+    active = np.ones(k, dtype=bool)
+    while active.any():
+        s_next = step(s)
+        d = torch.sum(torch.abs(s_next - s), dim=-1) / norm
+        delta = np.where(active, d.cpu().numpy(), delta)
+        live = torch.from_numpy(active).to(s.device).unsqueeze(-1)
+        s = torch.where(live, s_next, s)
+        iters += active
+        active &= (delta > tol) & (iters < max_iterations)
+    return s, iters, delta
+
+
 def converge_fixed(step, s0: torch.Tensor, num_iterations: int):
     """Apply ``step`` exactly ``num_iterations`` times (reference parity:
     the fixed-iteration mode)."""
@@ -239,6 +357,81 @@ def converge_sparse_adaptive_semiring(arrs: dict, s0, sr: Semiring,
                                       accel_every: int = 0):
     return adaptive_loop(lambda s: spmv_semiring(arrs, s, sr), s0, tol,
                          max_iterations, accel_every)
+
+
+def converge_sparse_topics(arrs: dict, s0k, sr: Semiring, tol: float = 1e-6,
+                           max_iterations: int = 100):
+    """Topic-batched adaptive converge: K topic vectors ``s0k[K, n]``
+    through one gather operator, each topic's trajectory independent
+    (:func:`adaptive_loop_topics`). Returns
+    ``(scores[K, n], iters[K], delta[K])``."""
+    return adaptive_loop_topics(lambda s: spmv_semiring(arrs, s, sr), s0k,
+                                tol, max_iterations)
+
+
+def scatter_sum(values: torch.Tensor, index: torch.Tensor,
+                size: int) -> torch.Tensor:
+    """``out[i] = Σ values[k] over index[k] == i``, added in one order on
+    every run: on the CPU ``index_add_`` adds serially in ``index``
+    order; on CUDA ``index_put_(accumulate=True)`` sorts the terms by
+    index and adds each slot's terms in one thread. (``index_add_``'s
+    CUDA float atomics, and ``index_put_``'s threaded CPU path past
+    32,768 terms, add in an order that changes from run to run.)"""
+    out = values.new_zeros(size)
+    if values.is_cuda:
+        return out.index_put_((index,), values, accumulate=True)
+    return out.index_add_(0, index, values)
+
+
+def partial_sweep_device(s, f_idx, f_valid, f_dang, f_ext, e_row, e_src,
+                         e_w, scal):
+    """One frontier-restricted power-iteration sweep on the device, the
+    segment-gather step behind ``incremental.device``: the update of a
+    frontier row set only, from its gathered in-edge segments
+    (``e_src[k]``/``e_w[k]`` is the k-th in-edge, source node and true
+    normalized weight, of frontier row ``e_row[k]``). One gather, two
+    segment sums and an elementwise tail: O(frontier fan-in) work
+    instead of O(E).
+
+    The dangling-mass shift stays the host scalar that the host twin
+    (``incremental/partial.py``) tracks; ``scal`` packs the per-sweep
+    host scalars ``[uni, uni_next, d_now, denom, keep, alpha, n_valid,
+    total]``.
+
+    The segment sums are :func:`scatter_sum`s (``e_row`` is not sorted:
+    tail in-edges follow the built ones and appends start new runs), so
+    a rerun gives the same bits. The card adds in another order than the
+    host twin, so the two agree to rounding, not bit for bit.
+
+    Returns ``(s2, changed, l1, d_delta, vsum, negl)``: ``s2`` is ``s``
+    with the frontier rows updated (in place: the store representation
+    true = s + uni·valid), ``changed`` the per-row true-value delta,
+    ``l1`` = Σ|changed|, ``d_delta`` the dangling-mass delta of the
+    store update, ``vsum`` = Σ valid over the frontier and ``negl`` =
+    Σ|changed|·f_ext, the sampled mode's neglected-propagation bound
+    (``f_ext`` is zero in the partial mode). The four sums are 0-d
+    tensors."""
+    uni, uni_next, d_now, denom, keep, alpha, n_valid, total = scal.unbind()
+    nf = f_idx.shape[0]
+    base = scatter_sum(e_w * s[e_src], e_row, nf)
+    in_wsum = scatter_sum(e_w, e_row, nf)
+    s_f = s[f_idx]
+    base_true = base + uni * in_wsum
+    s_true = s_f + uni * f_valid
+    corr = (d_now - f_dang * s_true) / denom
+    new_true = base_true + corr * f_valid
+    # alpha == 0 => keep == 1 and the pretrust term vanishes: the damped
+    # form is then exactly the undamped update
+    new_true = keep * new_true + alpha * (
+        f_valid / torch.clamp(n_valid, min=1.0)) * total
+    changed = new_true - s_true
+    new_store = new_true - uni_next * f_valid
+    s.index_put_((f_idx,), new_store)
+    l1 = torch.sum(torch.abs(changed))
+    d_delta = torch.sum(f_dang * (new_store - s_f))
+    vsum = torch.sum(f_valid)
+    negl = torch.sum(torch.abs(changed) * f_ext)
+    return s, changed, l1, d_delta, vsum, negl
 
 
 def _check_no_tf32(c: torch.Tensor) -> None:

@@ -2,7 +2,8 @@
 
 - ``route_stage`` (CUDA, ``csrc/lane_perm.cu``): one Clos route stage,
   transpose included, replacing ``protocol_tpu/ops/clos.py::_lane_perm_pallas``
-  and the transposes around it; ``lane_perm`` is its middle form.
+  and the transposes around it, for one vector or a topic batch
+  ``[K, T, 128]`` in one launch; ``lane_perm`` is its middle form.
 - ``field_kernel`` (CUDA, ``csrc/field.cu``): the Montgomery multiply
   and the modular add and subtract.
 """

@@ -13,6 +13,10 @@ plain version.
 - ``REVERSE``: ``out[b, r, l] = x[b, idx[b, r, l], r]`` over x viewed
   as ``(B, 128, m)``, the transpose back followed by the gather.
 
+``x`` may also be a topic batch ``[K, T, 128]`` sharing one index array
+(the reference ``vmap``s the sweep, giving its Pallas kernel a batch grid
+axis): each form then applies to each of the K arrays, in one launch.
+
 It replaces ``protocol_tpu/ops/clos.py::_lane_perm_pallas`` and the
 transposes between its calls. The CUDA source is
 ``protocol_tpu_torch/csrc/lane_perm.cu`` (its header says what bounds it
@@ -62,16 +66,17 @@ def route_stage_plain(x2d: torch.Tensor, idx2d: torch.Tensor, form: int,
                       m: int = 1) -> torch.Tensor:
     """The plain PyTorch version of the kernel (CPU, and the kernel's
     yardstick on the card): ``torch.gather`` and the reference's
-    reshapes and transposes."""
-    T = x2d.shape[0]
-    if form == FORWARD:
-        y = torch.gather(x2d, 1, idx2d.long())
-        return y.view(T // m, m, LANES).transpose(1, 2).contiguous().view(
-            T, LANES)
+    reshapes and transposes, over ``[T, 128]`` or a ``[K, T, 128]``
+    batch."""
+    lead, T = x2d.shape[:-2], x2d.shape[-2]
     if form == REVERSE:
-        x2d = x2d.view(T // m, LANES, m).transpose(1, 2).contiguous().view(
-            T, LANES)
-    return torch.gather(x2d, 1, idx2d.long())
+        x2d = x2d.view(lead + (T // m, LANES, m)).transpose(-1, -2) \
+            .contiguous().view(lead + (T, LANES))
+    y = torch.gather(x2d, -1, idx2d.long().expand_as(x2d))
+    if form == FORWARD:
+        y = y.view(lead + (T // m, m, LANES)).transpose(-1, -2) \
+            .contiguous().view(lead + (T, LANES))
+    return y
 
 
 def lane_perm_plain(x2d: torch.Tensor, idx2d: torch.Tensor) -> torch.Tensor:
@@ -105,7 +110,7 @@ def _load():
             lib = ctypes.CDLL(str(build()))
             lib.route_stage.argtypes = [
                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p]
             lib.route_stage.restype = ctypes.c_int
             lib.route_stage_error_string.argtypes = [ctypes.c_int]
@@ -124,39 +129,44 @@ def route_stage(x2d: torch.Tensor, idx2d: torch.Tensor, form: int,
                 m: int = 1) -> torch.Tensor:
     """One route stage in one launch (see the module's docstring).
 
-    ``x2d`` is ``[T, 128]`` float32, float64 or int32; ``idx2d`` is a
-    uint8 array of the same shape on the same device. ``m`` is the
-    forward or reverse form's rows per subproblem, a power of two ≥ 2
-    that divides T; the middle form ignores it."""
-    if x2d.dim() != 2 or x2d.shape[1] != LANES:
-        raise ValueError(f"route_stage: x must be [T, {LANES}], got "
-                         f"{tuple(x2d.shape)}")
-    if idx2d.shape != x2d.shape or idx2d.dtype != torch.uint8:
-        raise ValueError("route_stage: idx must be uint8 of x's shape")
+    ``x2d`` is ``[T, 128]``, or a topic batch ``[K, T, 128]``, of
+    float32, float64 or int32; ``idx2d`` is a uint8 ``[T, 128]`` array on
+    the same device. ``m`` is the forward or reverse form's rows per
+    subproblem, a power of two ≥ 2 that divides T; the middle form
+    ignores it."""
+    if x2d.dim() not in (2, 3) or x2d.shape[-1] != LANES:
+        raise ValueError(f"route_stage: x must be [T, {LANES}] or "
+                         f"[K, T, {LANES}], got {tuple(x2d.shape)}")
+    if idx2d.shape != x2d.shape[-2:] or idx2d.dtype != torch.uint8:
+        raise ValueError("route_stage: idx must be uint8 [T, 128] of x's T")
     if idx2d.device != x2d.device:
         raise ValueError("route_stage: x and idx on different devices")
     if form not in (FORWARD, MIDDLE, REVERSE):
         raise ValueError(f"route_stage: unknown form {form}")
-    if form != MIDDLE and (m < 2 or m & (m - 1) or x2d.shape[0] % m):
+    T = x2d.shape[-2]
+    if form != MIDDLE and (m < 2 or m & (m - 1) or T % m):
         raise ValueError(f"route_stage: m = {m} must be a power of two "
-                         f"≥ 2 dividing T = {x2d.shape[0]}")
+                         f"≥ 2 dividing T = {T}")
     if x2d.device.type == "cpu":
         return route_stage_plain(x2d, idx2d, form, m)
     if x2d.device.type != "cuda":
         raise ValueError(f"route_stage: unsupported device {x2d.device}")
     if x2d.dtype not in _DTYPES:
         raise ValueError(f"route_stage: unsupported dtype {x2d.dtype}")
+    batch = x2d.shape[0] if x2d.dim() == 3 else 1
+    if batch > 65535:
+        raise ValueError(f"route_stage: a batch of {batch} is past 65,535")
     x = _aligned(x2d)
     idx = _aligned(idx2d)
     out = torch.empty_like(x)
-    if x.shape[0] == 0:
+    if out.numel() == 0:
         return out
     lib = _load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.route_stage(_DTYPES[x.dtype], form, x.data_ptr(),
-                             idx.data_ptr(), out.data_ptr(), x.shape[0],
-                             m.bit_length() - 1, stream)
+                             idx.data_ptr(), out.data_ptr(), T,
+                             m.bit_length() - 1, batch, stream)
     if rc != 0:
         raise RuntimeError(
             f"route_stage launch failed: "

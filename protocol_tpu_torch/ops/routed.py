@@ -15,6 +15,10 @@ One sweep of the power iteration runs without a general gather:
 4. the dangling-mass correction and pre-trust damping
    (``ops.converge.dangling_and_damping``).
 
+A sweep takes one state vector ``[2^state_e]`` or a topic batch
+``[K, 2^state_e]`` (``converge_routed_topics``): the batch shares the
+operator, and each route stage is one launch whatever K is.
+
 Semantics are those of ``ops.converge.spmv``. The host side (the blocked
 bucketization, the operator build, and save/load in the reference's npz
 v2, dir v3 and legacy v1 formats) is a copy of the reference's, so one
@@ -44,13 +48,16 @@ import torch
 
 from ..device import resolve_device
 from ..graph import filter_edges, stable_argsort_bounded
+from ..utils import trace
 from .clos import plan_routes, route_core
 from .converge import (
     PLUSMUL,
     Semiring,
     adaptive_loop,
+    adaptive_loop_topics,
     converge_fixed,
     dangling_and_damping,
+    scatter_sum,
     semiring_tail,
 )
 
@@ -69,6 +76,7 @@ __all__ = [
     "spmv_routed_semiring",
     "converge_routed_fixed_semiring",
     "converge_routed_adaptive_semiring",
+    "converge_routed_topics",
 ]
 
 
@@ -485,9 +493,16 @@ def build_routed_operator(
 
     Semantics of ``filter_edges`` (the reference's opinion filter) are
     shared with the gather path; the result is field for field the
-    reference's ``build_routed_operator`` output."""
-    return _build_routed_operator(n, src, dst, val, valid, min_width,
-                                  prefer_native)
+    reference's ``build_routed_operator`` output. Every build counts
+    one ``ptpu_operator_full_builds_total`` (the cost the delta engine
+    exists to avoid: a churn window must leave it flat) and runs under
+    the ``routed.plan_build`` span, timed as
+    ``ptpu_routed_plan_build_seconds``."""
+    trace.counter("operator_full_builds").inc()
+    with trace.timed("routed_plan_build_seconds", "routed.plan_build",
+                     n=n, edges=len(src)):
+        return _build_routed_operator(n, src, dst, val, valid, min_width,
+                                      prefer_native)
 
 
 def ensure_edge_slots(op: RoutedOperator, src, dst, weight) \
@@ -700,61 +715,68 @@ def routed_arrays(op: RoutedOperator, dtype=torch.float32, alpha: float = 0.0,
 
 def blocked_broadcast(arrs: dict, s: torch.Tensor, widths: tuple, xs: tuple,
                       total_len: int, sr: Semiring = PLUSMUL) -> torch.Tensor:
-    """Expand a state vector into ``sr.mul``-combined edge values across
-    the blocked buckets (the source side of the routed SpMV). For
-    w < 128, lane ``l`` of lane-row ``x`` takes grid row ``l // w``, whose
-    score sits at state position ``(l // w)·X + x``; for w ≥ 128 a row
-    spans ``w/128`` whole lane-rows. Pad lanes carry weight 0, so they
-    yield ``sr.zero``; the tail past the buckets is filled with it."""
-    out = s.new_empty(total_len)
+    """Expand a state vector (or a ``[K, ·]`` batch of them) into
+    ``sr.mul``-combined edge values across the blocked buckets (the
+    source side of the routed SpMV). For w < 128, lane ``l`` of lane-row
+    ``x`` takes grid row ``l // w``, whose score sits at state position
+    ``(l // w)·X + x``; for w ≥ 128 a row spans ``w/128`` whole
+    lane-rows. Pad lanes carry weight 0, so they yield ``sr.zero``; the
+    tail past the buckets is filled with it."""
+    lead = s.shape[:-1]
+    out = s.new_empty(lead + (total_len,))
     pos = 0
     off = 0
     for bi, (w, X) in enumerate(zip(widths, xs)):
         w_mat = arrs["out_weight"][bi]
-        dst = out[off: off + X * 128]
+        dst = out[..., off: off + X * 128]
         if w < 128:
             g = 128 // w
-            s2t = s[pos: pos + g * X].view(g, X)
-            sr.mul(s2t.t().unsqueeze(-1), w_mat.view(X, g, w),
-                   out=dst.view(X, g, w))
+            s2t = s[..., pos: pos + g * X].unflatten(-1, (g, X))
+            sr.mul(s2t.transpose(-1, -2).unsqueeze(-1),
+                   w_mat.view(X, g, w), out=dst.unflatten(-1, (X, g, w)))
             pos += g * X
         else:
             nb_pad = X * 128 // w        # padded row count
-            sr.mul(s[pos: pos + nb_pad].unsqueeze(-1),
-                   w_mat.view(nb_pad, w), out=dst.view(nb_pad, w))
+            sr.mul(s[..., pos: pos + nb_pad].unsqueeze(-1),
+                   w_mat.view(nb_pad, w),
+                   out=dst.unflatten(-1, (nb_pad, w)))
             pos += nb_pad
         off += X * 128
-    out[off:].fill_(sr.zero)
+    out[..., off:].fill_(sr.zero)
     return out
 
 
 def blocked_reduce(arrs: dict, y: torch.Tensor, widths: tuple, xs: tuple,
                    n_pos: int, total_len: int,
                    sr: Semiring = PLUSMUL) -> torch.Tensor:
-    """Lane-segmented per-row ``sr.reduce`` of a routed edge array (the
-    destination side). For w < 128 logical row ``r`` (lane-row
-    ``x = r // g``, sub-row ``b = r % g``) owns lanes ``[b·w, (b+1)·w)``
-    and its sum lands at z position ``b·X + x``."""
+    """Lane-segmented per-row ``sr.reduce`` of a routed edge array, or a
+    ``[K, ·]`` batch of them (the destination side). For w < 128 logical
+    row ``r`` (lane-row ``x = r // g``, sub-row ``b = r % g``) owns lanes
+    ``[b·w, (b+1)·w)`` and its sum lands at z position ``b·X + x``."""
+    lead = y.shape[:-1]
     sums = []
     off = 0
     for w, X in zip(widths, xs):
-        y2 = y[off: off + X * 128].view(X, 128)
+        y2 = y[..., off: off + X * 128]
         if w < 128:
             g = 128 // w
-            sums.append(sr.reduce(y2.view(X, g, w), dim=-1).t().reshape(-1))
+            sums.append(sr.reduce(y2.unflatten(-1, (X, g, w)), dim=-1)
+                        .transpose(-1, -2).flatten(-2))
         else:
             nb_pad = X * 128 // w
             sums.append(sr.reduce(
-                sr.reduce(y2, dim=-1).view(nb_pad, w // 128), dim=-1))
+                sr.reduce(y2.unflatten(-1, (X, 128)), dim=-1)
+                .unflatten(-1, (nb_pad, w // 128)), dim=-1))
         off += X * 128
-    sums.append(y.new_full((total_len - n_pos,), sr.zero))
-    return torch.cat(sums)
+    sums.append(y.new_full(lead + (total_len - n_pos,), sr.zero))
+    return torch.cat(sums, dim=-1)
 
 
 def spmv_routed(arrs: dict, static: RoutedStatic,
                 s: torch.Tensor) -> torch.Tensor:
-    """One application of the normalized trust operator (state order):
-    broadcast → edge route → reduce → state route → dangling + damping.
+    """One application of the normalized trust operator (state order,
+    ``s`` of ``[2^state_e]`` or ``[K, 2^state_e]``): broadcast → edge
+    route → reduce → state route → dangling + damping.
 
     Two optional keys make it the delta engine's patched matvec:
 
@@ -763,7 +785,8 @@ def spmv_routed(arrs: dict, static: RoutedStatic,
       ``val / row_sum_at_build``);
     - ``tail_src``/``tail_dst``/``tail_w`` (int64 indices, state order):
       a fixed-capacity COO of structural inserts with true normalized
-      weights, folded in with one scatter-add.
+      weights, folded in with one ``scatter_sum`` (the same bits on
+      every run).
     """
     s_b = s * arrs["inv_row_scale"] if "inv_row_scale" in arrs else s
     x = blocked_broadcast(arrs, s_b, static.out_widths, static.out_xs,
@@ -776,8 +799,9 @@ def spmv_routed(arrs: dict, static: RoutedStatic,
                       static.state_bits)
     if "tail_w" in arrs:
         # tail weights are TRUE normalized weights: no inv_row_scale
-        base = base + torch.zeros_like(base).index_add_(
-            0, arrs["tail_dst"], arrs["tail_w"] * s[arrs["tail_src"]])
+        # (the engine's sweep: one vector, never a topic batch)
+        base = base + scatter_sum(arrs["tail_w"] * s[arrs["tail_src"]],
+                                  arrs["tail_dst"], base.shape[-1])
     return dangling_and_damping(arrs, s, base)
 
 
@@ -832,3 +856,17 @@ def converge_routed_adaptive_semiring(arrs: dict, static: RoutedStatic, s0,
     return adaptive_loop(
         lambda s: spmv_routed_semiring(arrs, static, s, sr), s0, tol,
         max_iterations, accel_every)
+
+
+def converge_routed_topics(arrs: dict, static: RoutedStatic, s0k,
+                           sr: Semiring, tol: float = 1e-6,
+                           max_iterations: int = 100):
+    """Topic-batched adaptive converge through one routed operator: K
+    state-order topic vectors ``s0k[K, 2^state_e]`` swept together, so
+    the routing-plan build is paid once for all K and each route stage
+    is one launch for the whole batch. Each topic's trajectory is its
+    own (``ops.converge.adaptive_loop_topics``: a converged topic is
+    frozen). Returns ``(scores[K, ·], iters[K], delta[K])``."""
+    return adaptive_loop_topics(
+        lambda s: spmv_routed_semiring(arrs, static, s, sr), s0k, tol,
+        max_iterations)

@@ -206,3 +206,80 @@ def test_cli_refuses_what_it_cannot_do(tmp_path, capsys):
     (tmp_path / "empty.csv").write_text("")
     assert port_main(["--assets", str(tmp_path), "sparse-scores", "--edges",
                       "empty.csv", "--n", "2", "--device", "cpu"]) == 1
+
+
+# --- the profile verb and its churn workloads --------------------------------
+
+@pytest.mark.parametrize("engine", ["gather", "routed"])
+def test_profile_refresh_matches_reference_workload(tmp_path, engine, capsys):
+    """``profile --workload refresh --device cpu`` against the reference's
+    ``run_refresh_workload``: the same iterations and the same report
+    keys (the reference's report taken from its own tracer)."""
+    import json
+
+    from protocol_tpu.cli import profilecmd as ref_profile
+    from protocol_tpu.utils import trace as ref_trace
+    from protocol_tpu_torch.cli.main import main as port_main
+    from protocol_tpu_torch.utils import trace as port_trace
+
+    was = (ref_trace.TRACER.enabled, port_trace.TRACER.enabled,
+           port_trace.sync_enabled())
+    for t in (ref_trace.TRACER, port_trace.TRACER):
+        t.reset()
+        t.reset_instruments()
+    ref_trace.TRACER.enable()
+    try:
+        meta = ref_profile.run_refresh_workload(n=300, engine=engine)
+        want = ref_profile.collect_stage_report(meta, 1.0)
+        out = tmp_path / "report.json"
+        assert port_main(["profile", "--workload", "refresh", "--engine",
+                          engine, "--n", "300", "--device", "cpu",
+                          "--json", str(out)]) == 0
+    finally:
+        for t, on in zip((ref_trace.TRACER, port_trace.TRACER), was):
+            t.reset()
+            t.reset_instruments()
+            if not on:
+                t.disable()
+        port_trace.sync_spans(was[2])
+    got = json.loads(out.read_text())
+    assert "profile: workload=refresh" in capsys.readouterr().out
+    assert got.keys() == want.keys()
+    assert got["meta"].keys() == {*meta, "trace_id"}
+    assert got["meta"]["iterations"] == meta["iterations"]
+    assert got["meta"]["edges"] == meta["edges"]
+    assert got["compile"].keys() == want["compile"].keys()
+    assert got["compile"]["compiles"] == 0
+    backend = "torch-sparse" if engine == "gather" else "torch-routed"
+    assert list(got["sweep"]) == [backend]
+    assert "converge.edges" in got["converge"]
+
+
+def test_profile_refuses_the_unported_workloads(capsys):
+    from protocol_tpu_torch.cli.main import main as port_main
+
+    for workload, slice_ in (("prove", "A12"), ("daemon", "A9")):
+        assert port_main(["profile", "--workload", workload,
+                          "--device", "cpu"]) == 1
+        err = capsys.readouterr().err
+        assert f"--workload {workload}" in err and slice_ in err
+
+
+def test_churn_workloads_match_reference():
+    """The library workloads of the churn path: the same tail and partial
+    refresh, and the ladder serving on the same rungs (the reference's
+    device sweeps run in float64 under the suite's x64, the port's in
+    its engine's float32: sweep counts within one)."""
+    from protocol_tpu.cli import profilecmd as ref_profile
+    from protocol_tpu_torch.cli import profilecmd as port_profile
+
+    kw = dict(n=800, batches=3, batch_edges=50)
+    assert port_profile.run_delta_workload(device="cpu", **kw) \
+        == ref_profile.run_delta_workload(**kw)
+    want = ref_profile.run_sublinear_workload(n=600)
+    got = port_profile.run_sublinear_workload(n=600, device="cpu")
+    assert (got["device_mode"], got["sampled_mode"]) \
+        == (want["device_mode"], want["sampled_mode"]) \
+        == ("device_partial", "sampled")
+    for k in ("device_sweeps", "sampled_sweeps", "full_iterations"):
+        assert abs(got[k] - want[k]) <= 1, k

@@ -46,7 +46,11 @@ def test_port_imports_neither_jax_nor_reference():
               "protocol_tpu_torch.ops.poseidon_batch",
               "protocol_tpu_torch.client.ingest",
               "protocol_tpu_torch.crypto.secp256k1",
-              "protocol_tpu_torch.models.eigentrust"):
+              "protocol_tpu_torch.models.eigentrust",
+              "protocol_tpu_torch.utils.trace",
+              "protocol_tpu_torch.incremental.engine",
+              "protocol_tpu_torch.incremental.device",
+              "protocol_tpu_torch.cli.profilecmd"):
         assert m in mods
 
 
@@ -82,6 +86,14 @@ def test_entry_points_raise_without_gpu():
         routed_arrays(build_routed_operator(3, src, dst, val))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry()
+    from protocol_tpu_torch.cli.profilecmd import run_refresh_workload
+    from protocol_tpu_torch.incremental import DeltaEngine
+
+    op = build_routed_operator(3, src, dst, val)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeltaEngine.anchor(3, src, dst, val, None, op)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_refresh_workload(n=20)
 
 
 def test_field_and_ingest_entry_points_raise_without_gpu():

@@ -154,6 +154,58 @@ def test_route_stage_kernel_matches_plain(form, m):
                 np_dtype, B)
 
 
+# --- the topic batch: K arrays sharing one index array ------------------------
+
+def _batch_case(K, T, np_dtype, seed):
+    xs, idx = zip(*(_case(T, np_dtype, seed + k) for k in range(K)))
+    return np.stack(xs), idx[0]
+
+
+@pytest.mark.parametrize("form,m", [(FORWARD, 16), (MIDDLE, 1), (REVERSE, 64)])
+def test_route_stage_batch_on_cpu_is_k_single_stages(form, m):
+    """A ``[K, T, 128]`` batch through the plain version equals K single
+    stages with the same index array, bit for bit."""
+    for np_dtype in _DTYPES:
+        x, idx = _batch_case(5, 128, np_dtype, m)
+        y = route_stage(torch.from_numpy(x), torch.from_numpy(idx), form, m)
+        assert y.shape == x.shape and y.is_contiguous()
+        for k in range(5):
+            assert np.array_equal(y[k].numpy(),
+                                  _stage_numpy(x[k], idx, form, m))
+
+
+def test_route_stage_batch_rejects_mismatched_index():
+    x = torch.zeros(3, 6, 128)
+    with pytest.raises(ValueError):
+        route_stage(x, torch.zeros(3, 6, 128, dtype=torch.uint8), MIDDLE)
+    with pytest.raises(ValueError):
+        route_stage(x, torch.zeros(4, 128, dtype=torch.uint8), MIDDLE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,m", [(FORWARD, 2), (FORWARD, 1 << 13),
+                                    (MIDDLE, 1), (REVERSE, 16),
+                                    (REVERSE, 1 << 13)])
+def test_route_stage_kernel_batch_matches_single_launches(form, m):
+    """The topic batch on the card: K = 5 arrays through one launch equal
+    five single launches and the plain batch, bit for bit, in every
+    dtype, on one subproblem and on three."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    for B in (1, 3):
+        for np_dtype in _DTYPES:
+            x, idx = _batch_case(5, m * B, np_dtype, m + B)
+            x, idx = torch.from_numpy(x).cuda(), torch.from_numpy(idx).cuda()
+            before = kernels.LAUNCHES["lane_perm"]
+            y = route_stage(x, idx, form, m)
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["lane_perm"] == before + 1
+            singles = torch.stack([route_stage(x[k], idx, form, m)
+                                   for k in range(5)])
+            assert torch.equal(y, singles), (np_dtype, B)
+            assert torch.equal(y, route_stage_plain(x, idx, form, m))
+
+
 # --- the field kernels (csrc/field.cu) ----------------------------------------
 
 from protocol_tpu_torch.ops import fieldops as fo  # noqa: E402
