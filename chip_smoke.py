@@ -52,6 +52,21 @@ indices) through ``recover_signers_batch``: every honest lane must
 recover its signer, every forged one must not, and the field kernels'
 launches per chunk must be the path's.
 
+Two user-facing paths carry the kernels too. ``scenario``: the
+adversarial harness's ``scenario run`` verb on a 1M-peer sybil ring
+(seed 7) with ``--engine routed``, once per semiring, each held against
+the same run with ``--engine sparse`` (under ``maxplus`` every field
+equal but the residual, a float32 sum in another order; under
+``plusmul`` iterations within one and mass capture within 1e-4
+relative), B1's launches equal to each operator's route stages times
+its sweeps. ``scores``: the client flow through the CLI (``deploy``,
+four mnemonics ``attest`` each other, ``attestations``, ``scores`` and
+``local-scores`` with a torch backend and ``--batched-ingest``, each
+equal to the exact path's scores.csv), the port's demo assets through
+``local-scores --batched-ingest`` equal to the committed scores.csv, and
+the client's auto mode on 48 attestations taking the batched path with
+the scalar path's setup; the field kernels' launches there are counted.
+
 Every phase prints one JSON line; any failed check exits non-zero. The
 last lines are the ``kernels`` record, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. With no CUDA device, or outside
@@ -125,6 +140,22 @@ INGEST_ATTESTATIONS = 262_144  # 8 chunks of the service's 32,768
 INGEST_CHUNK = 32_768
 INGEST_DISTINCT = 1024
 INGEST_SIGNERS = 64
+# the client flow (phase scores): four mnemonics rate each other through
+# the CLI; the auto mode's setup takes 48 attestations among them
+SCORES_MNEMONICS = (
+    "test test test test test test test test test test test junk",
+    "legal winner thank year wave sausage worth useful legal winner thank "
+    "yellow",
+    "letter advice cage absurd amount doctor acoustic avoid letter advice "
+    "cage above",
+    "abandon abandon abandon abandon abandon abandon abandon abandon "
+    "abandon abandon abandon about")
+AUTO_ATTESTATIONS = 48
+# the adversarial harness (phase scenario): a sybil ring at the largest
+# size bench.py's scenario cells name, under both semirings
+SCENARIO_PEERS = 1_000_000
+SCENARIO_SEED = 7
+SCENARIO_CAPTURE_RTOL = 1e-4
 
 
 class SmokeFailure(Exception):
@@ -1557,6 +1588,326 @@ def phase_ingest(device) -> dict:
     return launches
 
 
+def _cli(argv, env=None) -> tuple:
+    """One verb of the port's CLI in this process (so the kernel counts
+    see its launches): its exit code and what it printed."""
+    import contextlib
+    import io
+
+    from protocol_tpu_torch.cli.main import main as cli_main
+
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli_main([str(a) for a in argv])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _csv_rows(path: Path) -> list:
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def _auto_attestations(keys, domain: bytes) -> list:
+    """AUTO_ATTESTATIONS attestations among the four signers: every
+    ordered pair rated in rounds with new values, so each pair repeats
+    and its latest attestation wins."""
+    from protocol_tpu_torch.client import (
+        AttestationData,
+        SignatureData,
+        SignedAttestationData,
+    )
+
+    addrs = [kp.public_key.to_address_bytes() for kp in keys]
+    atts = []
+    rnd = 0
+    while len(atts) < AUTO_ATTESTATIONS:
+        for i, kp in enumerate(keys):
+            for j, about in enumerate(addrs):
+                if i != j and len(atts) < AUTO_ATTESTATIONS:
+                    data = AttestationData(about=about, domain=domain,
+                                           value=(7 * i + 3 * j + 5 * rnd)
+                                           % 256)
+                    sig = kp.sign(int(data.to_scalar().hash()))
+                    atts.append(SignedAttestationData(
+                        data, SignatureData.from_signature(sig)))
+        rnd += 1
+    return atts
+
+
+def _setup_key(setup) -> tuple:
+    """An ETSetup as comparable values."""
+    def ints(xs):
+        return tuple(None if x is None else int(x) for x in xs)
+
+    matrix, valid = setup.opinion
+    return (tuple(setup.address_set), ints(setup.pub_inputs.scores),
+            int(setup.pub_inputs.opinion_hash), tuple(setup.rational_scores),
+            tuple(tuple(row) for row in matrix), tuple(valid),
+            setup.pub_inputs.to_bytes())
+
+
+def phase_scores(device) -> dict:
+    """The client flow through the port's CLI on the card: ``deploy``,
+    four mnemonics ``attest`` each other, ``attestations``, then
+    ``scores --backend torch-sparse --batched-ingest`` and ``local-scores
+    --backend torch --batched-ingest``, each equal to the exact path's
+    scores.csv; ``local-scores --backend torch-sparse --batched-ingest``
+    on the port's demo assets, equal to the committed scores.csv; then
+    ``Client.et_circuit_setup`` in auto mode on AUTO_ATTESTATIONS
+    attestations (repeats, latest wins), which must take the batched
+    path (``ingest.*`` spans, no ``ingest.recover_scalar``) and equal
+    the scalar path's setup. Returns the field kernels' launches on
+    this path (the CLI verbs and the auto-mode setup)."""
+    import shutil
+
+    import torch
+
+    from protocol_tpu_torch.client import Client, ClientConfig
+    from protocol_tpu_torch.client.eth import ecdsa_keypairs_from_mnemonic
+    from protocol_tpu_torch.ops.kernels import field_kernel as fk
+    from protocol_tpu_torch.utils import trace
+
+    keys = [ecdsa_keypairs_from_mnemonic(m, 1)[0] for m in SCORES_MNEMONICS]
+    addrs = ["0x" + kp.public_key.to_address_bytes().hex() for kp in keys]
+    domain = bytes(20)
+    t0 = time.perf_counter()
+    auto_atts = _auto_attestations(keys, domain)
+    # the scalar path's setup first: it launches nothing on the card
+    config = ClientConfig()
+    scalar = _setup_key(Client(config, SCORES_MNEMONICS[0],
+                               batched_ingest=False)
+                        .et_circuit_setup(auto_atts))
+    host_s = time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as d:
+        flow, demo = Path(d) / "flow", Path(d) / "demo"
+        shutil.copytree(ROOT / "protocol_tpu_torch" / "cli" / "assets", demo)
+        committed = _csv_rows(demo / "scores.csv")
+        rcs = {}
+        t0 = time.perf_counter()
+        rcs["deploy"] = _cli(["--assets", flow, "deploy"])[0]
+        for i, m in enumerate(SCORES_MNEMONICS):
+            for j, about in enumerate(addrs):
+                if i != j:
+                    rcs[f"attest {i}->{j}"] = _cli(
+                        ["--assets", flow, "attest", "--to", about,
+                         "--score", 10 + 20 * i + 3 * j],
+                        env={"MNEMONIC": m})[0]
+        rcs["attestations"] = _cli(["--assets", flow, "attestations"])[0]
+        rcs["local-scores native"] = _cli(["--assets", flow,
+                                           "local-scores"])[0]
+        exact = (flow / "scores.csv").read_bytes()
+        attest_s = time.perf_counter() - t0
+
+        torch.cuda.synchronize()
+        fk.reset_launches()
+        walls, same = {}, {}
+        for name, argv, path in (
+                ("scores torch-sparse", ["--assets", flow, "scores",
+                                         "--backend", "torch-sparse",
+                                         "--batched-ingest"], flow),
+                ("local-scores torch", ["--assets", flow, "local-scores",
+                                        "--backend", "torch",
+                                        "--batched-ingest"], flow),
+                ("demo local-scores torch-sparse",
+                 ["--assets", demo, "local-scores", "--backend",
+                  "torch-sparse", "--batched-ingest"], demo)):
+            (path / "scores.csv").unlink()
+            t0 = time.perf_counter()
+            rc, out, err = _cli(argv)
+            walls[name] = time.perf_counter() - t0
+            rcs[name] = rc
+            if rc:
+                print(err, file=sys.stderr)
+            same[name] = (path / "scores.csv").exists() and (
+                (path / "scores.csv").read_bytes() == exact
+                if path == flow else
+                _csv_rows(path / "scores.csv") == committed)
+        peers = len(_csv_rows(flow / "scores.csv"))
+
+    # auto mode on the card: the batched path, the scalar path's setup
+    trace.TRACER.reset()
+    client = Client(config, SCORES_MNEMONICS[0])  # batched_ingest=None
+    t0 = time.perf_counter()
+    batched = _setup_key(client.et_circuit_setup(auto_atts))
+    auto_s = time.perf_counter() - t0
+    spans = sorted(trace.summary())
+    torch.cuda.synchronize()
+    launches = dict(fk.LAUNCHES)
+    batched_calls = 4  # three verbs and the auto-mode setup
+    emit("scores", rcs=rcs, peers=peers, walls_s=walls,
+         equal_to_exact_or_committed=same, attest_flow_s=attest_s,
+         auto_attestations=len(auto_atts), auto_mode_s=auto_s,
+         auto_spans=spans, auto_setup_equal_scalar=batched == scalar,
+         host_setup_s=host_s, launches=launches,
+         expected_launches={k: v * batched_calls for k, v in
+                            FIELD_LAUNCHES_PER_CHUNK.items()})
+    check(all(rc == 0 for rc in rcs.values()), f"a CLI verb failed: {rcs}")
+    check(peers == len(SCORES_MNEMONICS), f"scores.csv has {peers} peers")
+    check(all(same.values()), f"a scores.csv differs: {same}")
+    check("ingest.recover_scalar" not in spans
+          and {"ingest.hash_batch", "ingest.recover_batch"} <= set(spans),
+          f"auto mode did not take the batched path: {spans}")
+    check(batched == scalar, "the batched setup differs from the scalar one")
+    for k, v in FIELD_LAUNCHES_PER_CHUNK.items():
+        check(launches[k] == v * batched_calls, f"the scores path launched "
+              f"{k} {launches[k]} times, not {v} × {batched_calls}")
+    return launches
+
+
+def _compare_reports(routed: dict, sparse: dict, semiring: str) -> dict:
+    """Routed against sparse: under maxplus every field but the engine and
+    the residual (a float32 sum over slots in another order) must be
+    equal and the residual equal within float32 rounding; under plusmul
+    iterations within one and mass capture within
+    SCENARIO_CAPTURE_RTOL."""
+    def flat(d, prefix=""):
+        out = {}
+        for k, v in d.items():
+            if isinstance(v, dict):
+                out.update(flat(v, prefix + k + "."))
+            else:
+                out[prefix + k] = v
+        return out
+
+    a, b = flat(routed), flat(sparse)
+    differ = sorted(k for k in a if a[k] != b.get(k))
+    res_rel = (abs(a["scores.residual"] - b["scores.residual"])
+               / max(b["scores.residual"], 1e-30))
+    it = {k: abs(a[f"scores.{k}"] - b[f"scores.{k}"])
+          for k in ("iterations", "baseline_iterations")}
+    cap = {k: abs(a[f"robustness.{k}"] - b[f"robustness.{k}"])
+           / max(b[f"robustness.{k}"], 1e-30)
+           for k in ("attacker_mass_capture", "baseline_attacker_mass")}
+    if semiring == "maxplus":
+        ok = (set(differ) <= {"engine", "scores.residual"}
+              and res_rel <= 1e-5)
+    else:
+        ok = (max(it.values()) <= 1
+              and max(cap.values()) <= SCENARIO_CAPTURE_RTOL)
+    return {"ok": ok, "fields_differing": differ,
+            "residual_rel_diff": res_rel, "iterations_diff": it,
+            "capture_rel_diff": cap}
+
+
+def phase_scenario(device) -> int:
+    """``scenario run --topology sybil-ring --peers 1000000 --seed 7
+    --engine routed --timing`` through the CLI, once per semiring, each
+    held against the same run with ``--engine sparse``; the lane_perm
+    launches of each routed run must equal (edge-route stages +
+    state-route stages) of each operator it built × the sweeps run on
+    it. Returns the launches of both routed runs."""
+    import torch
+
+    from protocol_tpu_torch import graph as graph_mod
+    from protocol_tpu_torch.ops import kernels
+    from protocol_tpu_torch.ops import routed as routed_mod
+
+    # each backend builds its operator inside its converge: record the
+    # routed plans (their stage counts) and both engines' build seconds
+    built, gather_builds = [], []
+    build = routed_mod.build_routed_operator
+    build_gather = graph_mod.build_operator
+
+    def recording_build(*args, **kwargs):
+        t0 = time.perf_counter()
+        op = build(*args, **kwargs)
+        built.append((op, time.perf_counter() - t0))
+        return op
+
+    def recording_gather_build(*args, **kwargs):
+        t0 = time.perf_counter()
+        op = build_gather(*args, **kwargs)
+        gather_builds.append(time.perf_counter() - t0)
+        return op
+
+    base = ["scenario", "run", "--topology", "sybil-ring", "--peers",
+            SCENARIO_PEERS, "--seed", SCENARIO_SEED, "--timing"]
+    total, results = 0, {}
+    for semiring in ("plusmul", "maxplus"):
+        reports = {}
+        for engine in ("routed", "sparse"):
+            built.clear()
+            gather_builds.clear()
+            routed_mod.build_routed_operator = recording_build
+            graph_mod.build_operator = recording_gather_build
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            try:
+                rc, out, err = _cli([*base, "--semiring", semiring,
+                                     "--engine", engine])
+            finally:
+                routed_mod.build_routed_operator = build
+                graph_mod.build_operator = build_gather
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernels.LAUNCHES["lane_perm"]
+            if rc:
+                print(err, file=sys.stderr)
+            check(rc == 0, f"scenario run --engine {engine} --semiring "
+                  f"{semiring} failed")
+            rep = json.loads(out)
+            reports[engine] = rep
+            ops = [{"edge_stages": len(op.edge_stages),
+                    "state_stages": len(op.state_stages),
+                    "filtered_edges": int(op.nnz), "plan_build_s": s}
+                   for op, s in built]
+            sweeps = [rep["scores"]["iterations"],
+                      rep["scores"]["baseline_iterations"]]
+            expected = sum((o["edge_stages"] + o["state_stages"]) * n
+                           for o, n in zip(ops, sweeps))
+            timing = rep["timing_s"]
+            builds = [o["plan_build_s"] for o in ops] or list(gather_builds)
+            converge_s = [timing["attack_converge"] - builds[0],
+                          timing["baseline_converge"] - builds[1]]
+            results[f"{semiring}_{engine}"] = {
+                "wall_s": wall, "timing_s": timing,
+                "operator_build_s": builds,
+                "converge_s_without_operator_build": converge_s,
+                "edges": rep["edges"], "attackers": rep["attackers"],
+                "iterations": sweeps, "residual": rep["scores"]["residual"],
+                "capture": rep["robustness"]["attacker_mass_capture"],
+                "baseline_capture":
+                    rep["robustness"]["baseline_attacker_mass"],
+                "rank_displacement":
+                    rep["robustness"]["honest_rank_displacement"],
+                "attackers_in_top": rep["robustness"]["attackers_in_top"],
+                "operators": ops, "lane_perm_launches": launches,
+                "expected_launches": expected}
+            if engine == "routed":
+                check(len(ops) == 2, f"the routed run built {len(ops)} "
+                      "operators, not the attack's and the baseline's")
+                check(launches == expected, f"lane_perm launched {launches}"
+                      f" times under {semiring}, expected {expected}")
+                total += launches
+            else:
+                check(launches == 0 and not ops,
+                      "the sparse engine ran the routed path")
+        for rep in reports.values():
+            rep.pop("timing_s")
+        results[f"{semiring}_agreement"] = _compare_reports(
+            reports["routed"], reports["sparse"], semiring)
+    emit("scenario", peers=SCENARIO_PEERS, seed=SCENARIO_SEED,
+         topology="sybil-ring", **results)
+    for semiring in ("plusmul", "maxplus"):
+        check(results[f"{semiring}_agreement"]["ok"], f"routed and sparse "
+              f"reports disagree under {semiring}: "
+              f"{results[f'{semiring}_agreement']}")
+    return total
+
+
 def _field_record(name: str, launches: int, err: int, times: dict) -> dict:
     t = times[(name, 262_144)]
     replaces = {"mont_mul": "protocol_tpu/ops/pallas_kernels.py:32",
@@ -1600,12 +1951,14 @@ def main() -> int:
         delta = phase_delta(device, graph)
         topics = phase_topics(device, graph)
         del graph
+        scenario_launches = phase_scenario(device)
         phase_entry(device)
         phase_cli()
         field_err = phase_field_kernels_vs_plain(device)
         field_times = phase_field_times(device)
-        phase_field_converge(device)
+        converge_launches = phase_field_converge(device)
         field_launches = phase_ingest(device)
+        scores_launches = phase_scores(device)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1624,9 +1977,16 @@ def main() -> int:
         "library_ms": edge["library_ms"],
         "launches_by_path": {"converge": launches,
                              "churn": delta["lane_perm_launches"],
-                             "topics": topics["lane_perm_launches"]},
+                             "topics": topics["lane_perm_launches"],
+                             "scenario": scenario_launches},
         "batched": topics["batched_stage"],
-    }] + [_field_record(k, field_launches[k], field_err[k], field_times)
+    }] + [dict(_field_record(k, field_launches[k], field_err[k],
+                             field_times),
+               launches_by_path={
+                   "ingest": field_launches[k],
+                   "scores": scores_launches[k],
+                   **({"field_converge": converge_launches}
+                      if k == "mont_mul" else {})})
           for k in ("mont_mul", "add_mod", "sub_mod")]}), flush=True)
     emit("done", wall_s=time.perf_counter() - t_start)
     print(smi, flush=True)

@@ -14,9 +14,15 @@ so each counterpart is easy to find; nothing here imports ``jax`` or
 - ``incremental`` — the delta engine and the refresh ladder (churn
                  without a routing-plan rebuild)
 - ``utils.trace`` — spans and typed instruments, the reference's names
+- ``client``   — the client SDK (codecs, storage, chains, the ``Client``
+                 facade) and the batched ingest on the card
+- ``scenarios`` — the adversarial harness: seeded attack topologies,
+                 robustness metrics, ``run_scenario``
 - ``entry``    — the flagship step (20 routed sweeps on a 4096-peer graph)
-- ``cli``      — ``python -m protocol_tpu_torch.cli sparse-scores`` and
-                 ``profile``
+- ``cli``      — ``python -m protocol_tpu_torch.cli``: ``attest``,
+                 ``attestations``, ``deploy``, ``show``, ``update``,
+                 ``bandada``, ``local-scores``, ``scores``, ``scenario``,
+                 ``sparse-scores`` and ``profile``
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no device given and no GPU present they raise.

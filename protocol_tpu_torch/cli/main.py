@@ -1,5 +1,21 @@
-"""The port's CLI: ``sparse-scores`` and ``profile`` on torch.
+"""The port's CLI: the reference's score verbs, ``scenario``,
+``sparse-scores`` and ``profile`` on torch.
 
+- ``attest``, ``attestations``, ``deploy``, ``show``, ``update`` and
+  ``bandada`` are host verbs, copied from the reference CLI
+  (``protocol_tpu/cli/main.py``) with the same arguments, files and exit
+  codes: the file-persisted local chain (``node_url = "memory"``) or a
+  JSON-RPC node, the MNEMONIC env secret, ``config.json``,
+  ``attestations.csv`` and ``scores.csv`` under the assets directory.
+- ``local-scores`` and ``scores`` take ``--backend {native,torch,
+  torch-sparse}`` (the reference's ``native,jax,jax-sparse``): the exact
+  path always runs, and a torch backend's float scores must agree with
+  it within 1e-3. ``--batched-ingest`` recovers the signers on the card
+  (the field kernels). ``--device`` names the torch device of both; a
+  verb that needs the card and has none fails, it never runs on the CPU
+  unasked.
+- ``scenario`` is the adversarial harness (``cli/scenariocmd.py``):
+  ``list``, ``run`` (``--device``), ``report``.
 - ``sparse-scores`` converges a raw edge-list trust graph: the
   reference CLI's verb, with the same arguments, output CSV and exit
   codes, plus ``--device``. The sharded ``--checkpoint-dir`` mode is not
@@ -8,6 +24,10 @@
   per-stage report (``cli/profilecmd.py``): the reference's arguments
   plus ``--device``; ``--workload refresh`` runs, ``prove`` and
   ``daemon`` are refused until their slices are ported.
+
+The proof verbs (``et-*``, ``th-*``, ``kzg-params``) and ``serve``,
+``store`` and ``obs`` wait for the prover and the service; argparse
+rejects them as unknown verbs.
 """
 
 from __future__ import annotations
@@ -15,15 +35,41 @@ from __future__ import annotations
 import argparse
 import csv
 import hashlib
-import os
+import json
 import sys
 from pathlib import Path
 
 import numpy as np
 
+from ..client import (
+    AttestationRecord,
+    Client,
+    ClientConfig,
+    CSVFileStorage,
+    JSONFileStorage,
+    LocalChain,
+    ScoreRecord,
+)
+from ..utils.errors import EigenError
+from .fs import EigenFile, assets_dir, load_mnemonic
+
+_DEVICE_HELP = "torch device (default: cuda; 'cpu' to run on the CPU)"
+
 
 class CliError(Exception):
     """A user-facing failure: printed as ``error: ...``, exit code 1."""
+
+
+def cli_device(name):
+    """The torch device a verb runs on: ``--device`` if given, else the
+    card; with neither, a clean error instead of a silent CPU run."""
+    from ..device import resolve_device
+
+    try:
+        return resolve_device(name)
+    except RuntimeError as e:
+        raise CliError("no CUDA device available; pass --device cpu to run "
+                       "on the CPU") from e
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -34,6 +80,87 @@ def build_parser() -> argparse.ArgumentParser:
                         help="assets directory (default $EIGEN_ASSETS or "
                              "./assets)")
     sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("attest", help="sign and publish an attestation")
+    p.add_argument("--to", required=True, help="attested peer address (0x..)")
+    p.add_argument("--score", required=True, type=int,
+                   help="score value 0..255")
+    p.add_argument("--message", default="0x" + "00" * 32,
+                   help="optional 32-byte message")
+
+    sub.add_parser("attestations",
+                   help="fetch attestations into attestations.csv")
+
+    p = sub.add_parser("bandada",
+                       help="threshold-gated Bandada group membership")
+    p.add_argument("--action", choices=["add", "remove"], required=True)
+    p.add_argument("--identity-commitment", required=True)
+    p.add_argument("--address", required=True, help="peer address to check")
+
+    sub.add_parser("deploy",
+                   help="deploy the AttestationStation (local chain)")
+
+    for verb, text in (("local-scores", "score attestations.csv offline"),
+                       ("scores", "fetch attestations and compute scores")):
+        p = sub.add_parser(verb, help=text)
+        p.add_argument("--backend", choices=["native", "torch",
+                                             "torch-sparse"],
+                       default="native",
+                       help="native: the exact rational path alone; torch "
+                            "/ torch-sparse: also the float path on the "
+                            "device, held to 1e-3 of the exact scores")
+        p.add_argument("--batched-ingest", action="store_true",
+                       help="recover attestation signers on the device in "
+                            "one batch")
+        p.add_argument("--device", default=None, help=_DEVICE_HELP)
+
+    p = sub.add_parser(
+        "scenario",
+        help="adversarial scenario harness: list topologies, run a "
+             "seeded {topology x semiring} robustness experiment "
+             "(deterministic JSON), or render a saved report")
+    p.add_argument("action", choices=["list", "run", "report"],
+                   help="list: topology catalog + knobs; run: one "
+                        "seeded run (byte-identical JSON per seed); "
+                        "report: human summary of a saved run JSON")
+    p.add_argument("--topology", default="sybil-ring",
+                   help="attack family (see 'scenario list')")
+    p.add_argument("--peers", type=int, default=10_000,
+                   help="total peer count (honest + attackers)")
+    p.add_argument("--attacker-fraction", type=float, default=0.1,
+                   help="fraction of peers controlled by the attacker")
+    p.add_argument("--semiring", choices=["plusmul", "maxplus"],
+                   default="plusmul",
+                   help="sweep algebra: plusmul = EigenTrust mass "
+                        "propagation, maxplus = bottleneck (widest-"
+                        "path) trust through the same operator")
+    p.add_argument("--seed", type=int, default=0,
+                   help="topology RNG seed; same seed -> byte-identical "
+                        "report")
+    p.add_argument("--alpha", type=float, default=0.1,
+                   help="pre-trust damping (>0 makes the iteration "
+                        "bound spectrum-free)")
+    p.add_argument("--tol", type=float, default=1e-6)
+    p.add_argument("--max-iterations", type=int, default=100)
+    p.add_argument("--engine", choices=["auto", "sparse", "routed"],
+                   default="auto",
+                   help="SpMV engine; auto picks routed past 20M edges")
+    p.add_argument("--no-baseline", action="store_true",
+                   help="skip the attack-free control converge (rank "
+                        "displacement then reads as zero)")
+    p.add_argument("--timing", action="store_true",
+                   help="include wall-clock timing fields (breaks "
+                        "byte-identical reproducibility, so opt-in)")
+    p.add_argument("--out", help="also write the report JSON here "
+                                 "(relative to assets)")
+    p.add_argument("--json", help="report: saved run JSON to render")
+    p.add_argument("--device", default=None, help=_DEVICE_HELP)
+
+    sub.add_parser("show", help="print the current config")
+
+    p = sub.add_parser("update", help="update a config field")
+    for fld in ClientConfig.__dataclass_fields__:
+        p.add_argument(f"--{fld.replace('_', '-')}", dest=fld)
 
     p = sub.add_parser(
         "sparse-scores",
@@ -63,9 +190,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "reference CLI's)")
     p.add_argument("--out", default="sparse-scores.csv",
                    help="output CSV (peer_id,score), relative to assets")
-    p.add_argument("--device", default=None,
-                   help="torch device (default: cuda; 'cpu' to run on the "
-                        "CPU)")
+    p.add_argument("--device", default=None, help=_DEVICE_HELP)
 
     p = sub.add_parser(
         "profile",
@@ -106,9 +231,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--min-coverage", type=float, default=0.0,
                    help="exit 1 unless the named prover stages cover at "
                         "least this fraction of the prove wall time")
-    p.add_argument("--device", default=None,
-                   help="torch device (default: cuda; 'cpu' to run on the "
-                        "CPU)")
+    p.add_argument("--device", default=None, help=_DEVICE_HELP)
     return parser
 
 
@@ -163,10 +286,11 @@ def _cached_routed_operator(args, assets: Path, src, dst, val, valid):
     return op
 
 
-def handle_sparse_scores(args, assets: Path) -> int:
+def handle_sparse_scores(args, files, config) -> int:
     from .. import native
     from ..backend import TorchRoutedBackend, TorchSparseBackend
 
+    assets = files.assets
     if args.checkpoint_dir:
         raise CliError("--checkpoint-dir (sharded checkpointed converge) is "
                        "not available in the torch port yet")
@@ -179,11 +303,8 @@ def handle_sparse_scores(args, assets: Path) -> int:
     if engine == "auto":
         engine = ("routed" if args.n >= 100_000 and native.available()
                   else "gather")
-    try:
-        backend = (TorchRoutedBackend if engine == "routed"
-                   else TorchSparseBackend)(device=args.device)
-    except RuntimeError as e:  # no GPU and no --device
-        raise CliError(str(e)) from e
+    backend = (TorchRoutedBackend if engine == "routed"
+               else TorchSparseBackend)(device=cli_device(args.device))
     valid = np.ones(args.n, dtype=bool)
     extra = {}
     if engine == "routed":
@@ -209,21 +330,247 @@ def handle_sparse_scores(args, assets: Path) -> int:
     return 0 if converged else 1
 
 
-def main(argv=None) -> int:
-    from ..utils.errors import EigenError
-    from .profilecmd import handle_profile
+# --- context helpers (the reference CLI's) ---------------------------------
 
+
+def _load_config(files: EigenFile) -> ClientConfig:
+    path = files.config_json()
+    if path.exists():
+        return ClientConfig.from_dict(JSONFileStorage(path).load())
+    return ClientConfig()
+
+
+def _save_config(files: EigenFile, config: ClientConfig) -> None:
+    JSONFileStorage(files.config_json()).save(config.to_dict())
+
+
+def _make_client(files: EigenFile, config: ClientConfig,
+                 batched_ingest: bool = False, device=None) -> Client:
+    chain = None
+    if config.node_url == "memory":
+        path = files.chain_json()
+        if path.exists():
+            chain = LocalChain.from_json(JSONFileStorage(path).load())
+        else:
+            chain = LocalChain()
+    return Client(config, load_mnemonic(), chain=chain,
+                  batched_ingest=batched_ingest, device=device)
+
+
+def _save_chain(files: EigenFile, client: Client) -> None:
+    if isinstance(client.chain, LocalChain):
+        JSONFileStorage(files.chain_json()).save(client.chain.to_json())
+
+
+def _parse_hex(value: str, length: int, what: str) -> bytes:
+    try:
+        raw = bytes.fromhex(value.removeprefix("0x"))
+    except ValueError as e:
+        raise EigenError("parsing_error",
+                         f"bad {what} (not hex): {value}") from e
+    if len(raw) != length:
+        raise EigenError("parsing_error",
+                         f"bad {what} (need {length} bytes): {value}")
+    return raw
+
+
+def _parse_address(value: str) -> bytes:
+    return _parse_hex(value, 20, "address")
+
+
+def _load_attestations(files: EigenFile) -> list:
+    storage = CSVFileStorage(files.attestations_csv(), AttestationRecord)
+    return [record.to_signed() for record in storage.load()]
+
+
+def _fetch_attestations(files: EigenFile, client: Client) -> list:
+    atts = client.get_attestations()
+    records = [AttestationRecord.from_signed(a) for a in atts]
+    CSVFileStorage(files.attestations_csv(), AttestationRecord).save(records)
+    return atts
+
+
+def _write_scores(files: EigenFile, scores: list) -> None:
+    records = [ScoreRecord.from_score(s) for s in scores]
+    CSVFileStorage(files.scores_csv(), ScoreRecord).save(records)
+
+
+def _compute_scores(client: Client, atts: list, backend_name: str,
+                    device=None) -> list:
+    """Score through the chosen ConvergeBackend; 'native' is the exact
+    reference path, 'torch'/'torch-sparse' run the float path on
+    ``device`` and are held to the exact rational scores. One circuit
+    setup serves both paths (per-attestation ECDSA recovery dominates)."""
+    setup = client.et_circuit_setup(atts)
+    scores = client.scores_from_setup(setup)
+    if backend_name != "native":
+        from ..backend import TorchDenseBackend, TorchSparseBackend
+        from ..utils import trace
+
+        backend = (TorchDenseBackend if backend_name == "torch"
+                   else TorchSparseBackend)(device=device)
+        matrix, _ = setup.opinion
+        with trace.span("converge.backend", backend=backend_name):
+            float_scores = backend.converge(
+                matrix, client.initial_score, client.num_iterations
+            )
+        for i, score in enumerate(scores):
+            ratio = float(score.ratio)
+            dev = float(float_scores[i])
+            if abs(dev - ratio) > 1e-3 * max(ratio, 1.0):
+                raise EigenError(
+                    "verification_error",
+                    f"backend {backend_name} diverged from the exact path at "
+                    f"peer {i}: {dev} vs {ratio}",
+                )
+    return scores
+
+
+# --- handlers ---------------------------------------------------------------
+
+
+def handle_attest(args, files, config):
+    client = _make_client(files, config)
+    tx = client.attest(
+        _parse_address(args.to),
+        args.score,
+        _parse_hex(args.message, 32, "message"),
+    )
+    _save_chain(files, client)
+    print(f"attestation submitted: {tx}")
+
+
+def handle_attestations(args, files, config):
+    client = _make_client(files, config)
+    atts = _fetch_attestations(files, client)
+    print(f"saved {len(atts)} attestations to {files.attestations_csv()}")
+
+
+def handle_scores(args, files, config, local: bool):
+    # the card is checked before anything is fetched or written
+    device = None
+    if args.backend != "native" or args.batched_ingest:
+        device = cli_device(args.device)
+    client = _make_client(files, config, batched_ingest=args.batched_ingest,
+                          device=device)
+    atts = (_load_attestations(files) if local
+            else _fetch_attestations(files, client))
+    scores = _compute_scores(client, atts, args.backend, device)
+    _write_scores(files, scores)
+    for s in scores:
+        print(f"0x{s.address.hex()}  {float(s.ratio):.6f}")
+    print(f"saved {len(scores)} scores to {files.scores_csv()}")
+
+
+def handle_bandada(args, files, config):
+    from .bandada import BandadaApi
+
+    storage = CSVFileStorage(files.scores_csv(), ScoreRecord)
+    target = args.address.lower()
+    record = next(
+        (r for r in storage.load() if r.peer_address.lower() == target), None
+    )
+    if record is None:
+        raise EigenError("validation_error", f"no score for {args.address}")
+    threshold = int(config.band_th)
+    score = int(record.numerator) // int(record.denominator)
+    if args.action == "add":
+        if score < threshold:
+            raise EigenError(
+                "validation_error",
+                f"score {score} below band threshold {threshold}",
+            )
+        BandadaApi(config.band_url).add_member(
+            config.band_id, args.identity_commitment
+        )
+        print(f"added {args.identity_commitment} to group {config.band_id}")
+    else:
+        BandadaApi(config.band_url).remove_member(
+            config.band_id, args.identity_commitment
+        )
+        print(f"removed {args.identity_commitment} from group "
+              f"{config.band_id}")
+
+
+def handle_deploy(args, files, config):
+    from ..utils.keccak import keccak256
+
+    if config.node_url == "memory":
+        # the reference CLI's local address, so both packages agree
+        address = keccak256(b"protocol_tpu.attestation_station")[12:]
+        config.as_address = "0x" + address.hex()
+        _save_config(files, config)
+        print(f"local AttestationStation at {config.as_address}")
+        return
+    # live node: sign and send a creation transaction carrying the
+    # vendored AttestationStation bytecode (reference: eth.rs:18-25,
+    # bytecode att_station.rs:119)
+    from ..client.chain import RpcChain
+    from ..client.eth import ecdsa_keypairs_from_mnemonic
+
+    keypair = ecdsa_keypairs_from_mnemonic(load_mnemonic(), 1)[0]
+    chain = RpcChain.deploy_signed(config.node_url, keypair,
+                                   chain_id=int(config.chain_id))
+    config.as_address = "0x" + chain.contract_address.hex()
+    _save_config(files, config)
+    print(f"deployed AttestationStation at {config.as_address}")
+
+
+def handle_update(args, files, config):
+    changed = []
+    for fld in ClientConfig.__dataclass_fields__:
+        value = getattr(args, fld, None)
+        if value is not None:
+            setattr(config, fld, int(value) if fld == "chain_id" else value)
+            changed.append(fld)
+    if not changed:
+        raise EigenError("config_error", "no config fields given")
+    _save_config(files, config)
+    print(f"updated: {', '.join(changed)}")
+
+
+def handle_show(args, files, config):
+    print(json.dumps(config.to_dict(), indent=2))
+
+
+def handle_scenario(args, files, config):
+    from .scenariocmd import handle_scenario as _handle
+
+    return _handle(args, files, config)
+
+
+def handle_profile(args, files, config):
+    from .profilecmd import handle_profile as _handle
+
+    try:
+        return _handle(args)
+    except RuntimeError as e:  # no GPU and no --device
+        raise CliError(str(e)) from e
+
+
+HANDLERS = {
+    "attest": handle_attest,
+    "attestations": handle_attestations,
+    "bandada": handle_bandada,
+    "deploy": handle_deploy,
+    "local-scores": lambda a, f, c: handle_scores(a, f, c, local=True),
+    "profile": handle_profile,
+    "scenario": handle_scenario,
+    "scores": lambda a, f, c: handle_scores(a, f, c, local=False),
+    "show": handle_show,
+    "sparse-scores": handle_sparse_scores,
+    "update": handle_update,
+}
+
+
+def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     try:
-        if args.command == "profile":
-            try:
-                return handle_profile(args)
-            except RuntimeError as e:  # no GPU and no --device
-                raise CliError(str(e)) from e
-        assets = Path(args.assets or os.environ.get("EIGEN_ASSETS",
-                                                    "assets"))
-        assets.mkdir(parents=True, exist_ok=True)
-        return handle_sparse_scores(args, assets)
+        files = config = None
+        if args.command != "profile":  # profile reads and writes no assets
+            files = EigenFile(assets_dir(args.assets))
+            config = _load_config(files)
+        return HANDLERS[args.command](args, files, config) or 0
     except (CliError, EigenError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1

@@ -6,7 +6,8 @@ modules are ported: ``refresh`` (a synthetic trust-graph converge through
 a backend) on the verb, and the library functions
 ``run_delta_workload`` and ``run_sublinear_workload`` (the churn path:
 one routed build, a ``DeltaEngine`` anchor, churn windows, the refresh
-ladder), which the reference's CLI does not expose either. The
+ladder) and ``run_scenario_workload`` (a sybil ring under both
+semirings), which the reference's CLI does not expose either. The
 ``prove`` and ``daemon`` workloads need the device prover and the
 service, which are not ported yet: the verb refuses them with an error
 that names the missing slice.
@@ -160,6 +161,33 @@ def run_sublinear_workload(n: int = 3000, m: int = 4, seed: int = 19,
             "device_sweeps": None if res_dev is None else res_dev.sweeps,
             "sampled_sweeps": None if res_smp is None else res_smp.sweeps,
             "full_iterations": int(it_f)}
+
+
+def run_scenario_workload(peers: int = 4000, seed: int = 23,
+                          device=None) -> dict:
+    """One mid-scale adversarial scenario per semiring, stage-attributed:
+    a seeded sybil-ring build converged through the ConvergeBackend seam
+    under (+,*) and again under (max,min), each with its attack-free
+    baseline control — so the stages are the whole semiring sweep
+    surface (``scenario.run`` wrapping the ``converge.edges`` sweeps for
+    both algebras)."""
+    from ..scenarios import run_scenario
+
+    # alpha matches the scenario harness default: the damped bound
+    # keeps iteration counts seed-stable (the stages are timed, not
+    # mixing rates), and both semiring runs share one graph build seed
+    reports = {
+        name: run_scenario("sybil-ring", peers=peers, seed=seed,
+                           semiring=name, alpha=0.1, engine="sparse",
+                           device=device)
+        for name in ("plusmul", "maxplus")
+    }
+    return {"workload": "scenario", "peers": peers,
+            "edges": reports["plusmul"]["edges"],
+            "iterations": {name: rep["scores"]["iterations"]
+                           for name, rep in reports.items()},
+            "capture": {name: rep["robustness"]["attacker_mass_capture"]
+                        for name, rep in reports.items()}}
 
 
 # --- report ----------------------------------------------------------------

@@ -1,0 +1,247 @@
+"""The port's CLI verbs against the reference CLI, on the CPU.
+
+Both CLIs run the same verbs in assets directories of their own, with
+the same mnemonics: the chain file, ``attestations.csv`` and
+``scores.csv`` must come out byte-identical, and the port's copy of the
+demo assets must reproduce the committed ``scores.csv`` through the
+batched ingest (``--device cpu``: the plain versions of the field
+kernels). Twins of ``tests/test_cli.py``.
+"""
+
+import csv
+import json
+import shutil
+from pathlib import Path
+
+import pytest
+import torch
+
+from protocol_tpu.cli.main import main as ref_main
+from protocol_tpu_torch.cli import build_parser
+from protocol_tpu_torch.cli.main import main as port_main
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_ASSETS = ROOT / "protocol_tpu_torch" / "cli" / "assets"
+REF_ASSETS = ROOT / "protocol_tpu" / "cli" / "assets"
+M2 = "legal winner thank year wave sausage worth useful legal winner thank yellow"
+# the reference's float backends and their port twins
+PORT_NAMES = {"jax": "torch", "jax-sparse": "torch-sparse"}
+
+
+def both(tmp_path, *argv, device=None):
+    """Run one verb in each CLI, each in its own assets directory;
+    returns the two exit codes (reference, port)."""
+    rc_ref = ref_main(["--assets", str(tmp_path / "ref"), *argv])
+    port_argv = [PORT_NAMES.get(a, a) for a in argv]
+    if device:
+        port_argv += ["--device", device]
+    rc_port = port_main(["--assets", str(tmp_path / "port"), *port_argv])
+    return rc_ref, rc_port
+
+
+def same_file(tmp_path, name):
+    got = (tmp_path / "port" / name).read_bytes()
+    assert got == (tmp_path / "ref" / name).read_bytes(), name
+    return got
+
+
+def test_parser_accepts_the_ported_verbs_and_no_other():
+    parser = build_parser()
+    for verb, extra in [
+        ("attest", ["--to", "0x" + "11" * 20, "--score", "5"]),
+        ("attestations", []),
+        ("bandada", ["--action", "add", "--identity-commitment", "1",
+                     "--address", "0xaa"]),
+        ("deploy", []),
+        ("local-scores", ["--backend", "torch", "--batched-ingest",
+                          "--device", "cpu"]),
+        ("scores", ["--backend", "torch-sparse"]),
+        ("scenario", ["run", "--topology", "slander", "--peers", "100",
+                      "--semiring", "maxplus", "--engine", "routed",
+                      "--device", "cpu", "--timing", "--out", "s.json"]),
+        ("scenario", ["report", "--json", "s.json"]),
+        ("show", []),
+        ("sparse-scores", ["--edges", "e.csv", "--n", "10"]),
+        ("profile", ["--workload", "refresh"]),
+        ("update", ["--chain-id", "1", "--node-url", "memory"]),
+    ]:
+        assert parser.parse_args([verb, *extra]).command == verb
+    for verb in ("et-proof", "th-verify", "kzg-params", "serve", "store",
+                 "obs"):
+        with pytest.raises(SystemExit):
+            parser.parse_args([verb])
+    with pytest.raises(SystemExit):  # the reference's backend names
+        parser.parse_args(["scores", "--backend", "jax"])
+
+
+def test_show_and_update_roundtrip(tmp_path, capsys):
+    outs = []
+    for main, d in ((ref_main, "ref"), (port_main, "port")):
+        a = ["--assets", str(tmp_path / d)]
+        assert main([*a, "show"]) == 0
+        before = capsys.readouterr().out
+        assert main([*a, "update", "--domain", "0x" + "ab" * 20,
+                     "--chain-id", "5"]) == 0
+        updated = capsys.readouterr().out
+        assert main([*a, "show"]) == 0
+        after = capsys.readouterr().out
+        assert main([*a, "update"]) == 1
+        err = capsys.readouterr().err
+        outs.append((before, updated, after, err))
+    assert outs[0] == outs[1]
+    assert json.loads(outs[1][0])["node_url"] == "memory"
+    config = json.loads(outs[1][2])
+    assert config["domain"] == "0x" + "ab" * 20 and config["chain_id"] == 5
+    assert "no config fields" in outs[1][3]
+    same_file(tmp_path, "config.json")
+
+
+def test_deploy_sets_local_address(tmp_path, capsys):
+    assert both(tmp_path, "deploy") == (0, 0)
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == out[1] and "0x" in out[0]
+    config = json.loads(same_file(tmp_path, "config.json"))
+    assert config["as_address"] != "0x" + "00" * 20
+
+
+def test_attest_scores_flow(tmp_path, capsys, monkeypatch):
+    """attest (2 peers) → attestations → local-scores / scores with every
+    backend, in both CLIs: the same chain, attestations and scores
+    files, byte for byte."""
+    from protocol_tpu_torch.cli.fs import INSECURE_MNEMONIC
+    from protocol_tpu_torch.client.eth import ecdsa_keypairs_from_mnemonic
+
+    addr1 = ecdsa_keypairs_from_mnemonic(INSECURE_MNEMONIC, 1)[0] \
+        .public_key.to_address_bytes()
+    addr2 = ecdsa_keypairs_from_mnemonic(M2, 1)[0] \
+        .public_key.to_address_bytes()
+
+    monkeypatch.delenv("MNEMONIC", raising=False)
+    assert both(tmp_path, "attest", "--to", "0x" + addr2.hex(),
+                "--score", "10") == (0, 0)
+    monkeypatch.setenv("MNEMONIC", M2)
+    assert both(tmp_path, "attest", "--to", "0x" + addr1.hex(),
+                "--score", "10") == (0, 0)
+    monkeypatch.delenv("MNEMONIC")
+    same_file(tmp_path, "chain.json")
+    assert both(tmp_path, "attestations") == (0, 0)
+    same_file(tmp_path, "attestations.csv")
+
+    capsys.readouterr()
+    assert both(tmp_path, "local-scores") == (0, 0)
+    out = capsys.readouterr().out
+    assert "1000.000000" in out
+    first = same_file(tmp_path, "scores.csv")
+    # the float backends agree with the exact path inside the verb, and
+    # the exact scores are the file's, whatever the backend
+    assert both(tmp_path, "local-scores", "--backend", "jax",
+                device="cpu") == (0, 0)
+    assert same_file(tmp_path, "scores.csv") == first
+    (tmp_path / "port" / "attestations.csv").unlink()
+    assert both(tmp_path, "scores", "--backend", "jax-sparse",
+                device="cpu") == (0, 0)
+    assert same_file(tmp_path, "scores.csv") == first
+    same_file(tmp_path, "attestations.csv")
+    out = capsys.readouterr().out.splitlines()
+    half = len(out) // 2
+    assert out[:half] == out[half:]
+
+
+def test_local_scores_without_attestations_fails(tmp_path, capsys):
+    assert both(tmp_path, "local-scores") == (1, 1)
+    err = capsys.readouterr().err.splitlines()
+    assert len(err) == 2 and "error" in err[1]
+    assert err[0].replace(str(tmp_path / "ref"), "") == \
+        err[1].replace(str(tmp_path / "port"), "")
+
+
+def test_batched_ingest_flag_parses(tmp_path, capsys, monkeypatch):
+    """--batched-ingest on local-scores parses; with no attestations the
+    verb still fails cleanly like the plain path, in both CLIs. With
+    attestations the flag hands them, and ``--device``, to the batched
+    recovery (whose results ``test_torch_client.py`` holds against the
+    scalar path's)."""
+    assert both(tmp_path, "local-scores", "--batched-ingest",
+                device="cpu") == (1, 1)
+    err = capsys.readouterr().err.splitlines()
+    assert len(err) == 2 and all("No such file" in e for e in err)
+
+    from protocol_tpu_torch.client import ingest
+
+    calls = []
+
+    class Called(Exception):
+        pass
+
+    def spy(attestations, full_verify=False, device=None):
+        calls.append((len(attestations), full_verify, device))
+        raise Called
+
+    monkeypatch.setattr(ingest, "recover_signers_batch", spy)
+    shutil.copytree(PORT_ASSETS, tmp_path / "demo")
+    with pytest.raises(Called):
+        port_main(["--assets", str(tmp_path / "demo"), "local-scores",
+                   "--batched-ingest", "--device", "cpu"])
+    assert calls == [(6, False, torch.device("cpu"))]
+    assert port_main(["--assets", str(tmp_path / "demo"),
+                      "local-scores"]) == 0  # the flag's default: scalar
+    assert len(calls) == 1
+
+
+def test_bundled_demo_assets_score_out_of_box(tmp_path):
+    """The port's copy of the demo assets (byte-identical to the
+    reference's) runs through ``local-scores``, exact and with a torch
+    backend, and reproduces the committed scores.csv byte for byte."""
+    for f in ("attestations.csv", "config.json", "scores.csv"):
+        assert (PORT_ASSETS / f).read_bytes() == (REF_ASSETS / f).read_bytes()
+    assets = tmp_path / "assets"
+    shutil.copytree(PORT_ASSETS, assets)
+    for extra in ([], ["--backend", "torch-sparse", "--device", "cpu"]):
+        (assets / "scores.csv").unlink()
+        assert port_main(["--assets", str(assets), "local-scores",
+                          *extra]) == 0
+        assert (assets / "scores.csv").read_bytes() == \
+            (PORT_ASSETS / "scores.csv").read_bytes()
+    with open(assets / "scores.csv") as f:
+        rows = list(csv.DictReader(f))
+    assert len(rows) == 3 and sum(int(r["score"]) for r in rows) == 2999
+
+
+def test_bandada_threshold_gate(tmp_path, capsys, monkeypatch):
+    for d in ("ref", "port"):
+        (tmp_path / d).mkdir()
+        (tmp_path / d / "scores.csv").write_text(
+            "peer_address,score_fr,numerator,denominator,score\n"
+            "0xaabbccddeeff00112233445566778899aabbccdd,0x01,300,1,300\n")
+    monkeypatch.setenv("BANDADA_API_KEY", "dummy")
+    args = ("bandada", "--action", "add", "--identity-commitment", "123",
+            "--address", "0xaabbccddeeff00112233445566778899aabbccdd")
+    assert both(tmp_path, *args) == (1, 1)
+    err = capsys.readouterr().err.splitlines()
+    assert err[0] == err[1] and "below band threshold" in err[0]
+    assert both(tmp_path, "bandada", "--action", "add",
+                "--identity-commitment", "1", "--address",
+                "0x" + "11" * 20) == (1, 1)
+    err = capsys.readouterr().err.splitlines()
+    assert err[0] == err[1] and "no score for" in err[0]
+
+
+def test_verbs_that_need_the_card_fail_without_one(tmp_path, capsys):
+    """No fallback: with no GPU and no ``--device`` a torch backend, the
+    batched ingest and a scenario run exit 1 with an error that names
+    the device, and write nothing."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    assets = tmp_path / "assets"
+    shutil.copytree(PORT_ASSETS, assets)
+    (assets / "scores.csv").unlink()
+    for argv in (["scores", "--backend", "torch-sparse"],
+                 ["local-scores", "--backend", "torch"],
+                 ["local-scores", "--batched-ingest"],
+                 ["scenario", "run", "--peers", "100"]):
+        assert port_main(["--assets", str(assets), *argv]) == 1
+        err = capsys.readouterr().err
+        assert "no CUDA device" in err and "--device cpu" in err, argv
+    assert not (assets / "scores.csv").exists()
+    assert (assets / "attestations.csv").read_bytes() == \
+        (PORT_ASSETS / "attestations.csv").read_bytes()

@@ -50,7 +50,22 @@ def test_port_imports_neither_jax_nor_reference():
               "protocol_tpu_torch.utils.trace",
               "protocol_tpu_torch.incremental.engine",
               "protocol_tpu_torch.incremental.device",
-              "protocol_tpu_torch.cli.profilecmd"):
+              "protocol_tpu_torch.cli.profilecmd",
+              "protocol_tpu_torch.client.client",
+              "protocol_tpu_torch.client.chain",
+              "protocol_tpu_torch.client.eth",
+              "protocol_tpu_torch.client.evm",
+              "protocol_tpu_torch.client.mocknode",
+              "protocol_tpu_torch.client.storage",
+              "protocol_tpu_torch.client.circuit_io",
+              "protocol_tpu_torch.client.att_station_bytecode",
+              "protocol_tpu_torch.models.threshold",
+              "protocol_tpu_torch.cli.fs",
+              "protocol_tpu_torch.cli.bandada",
+              "protocol_tpu_torch.cli.scenariocmd",
+              "protocol_tpu_torch.scenarios.topologies",
+              "protocol_tpu_torch.scenarios.metrics",
+              "protocol_tpu_torch.scenarios.runner"):
         assert m in mods
 
 
@@ -136,6 +151,65 @@ def test_cli_without_device_fails_cleanly(tmp_path, capsys):
                  "e.csv", "--n", "2"]) == 1
     assert "no CUDA device" in capsys.readouterr().err
     assert not (tmp_path / "sparse-scores.csv").exists()
+
+
+def test_client_and_scenario_entry_points_raise_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    from protocol_tpu_torch.cli.profilecmd import run_scenario_workload
+    from protocol_tpu_torch.client import Client, ClientConfig
+    from protocol_tpu_torch.scenarios import run_scenario
+
+    client = Client(ClientConfig(), "test test test test test test test "
+                    "test test test test junk", batched_ingest=True)
+    src, dst, val = np.array([0, 1]), np.array([1, 0]), np.ones(2)
+    calls = [
+        lambda: client.calculate_scores_sparse(2, src, dst, val, tol=1e-6),
+        lambda: run_scenario("sybil-ring", peers=50),
+        lambda: run_scenario_workload(peers=50),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_port_cli_opens_no_file_of_the_reference(tmp_path):
+    """The port's CLI runs on its own copy of the demo assets and its own
+    sources: with an audit hook on every file open, ``local-scores`` (a
+    torch backend on the CPU), ``show`` and ``scenario list`` open
+    nothing under ``protocol_tpu/``."""
+    import shutil
+
+    assets = tmp_path / "assets"
+    shutil.copytree(ROOT / "protocol_tpu_torch" / "cli" / "assets", assets)
+    code = (
+        "import json, os, sys\n"
+        "opened = []\n"
+        "def hook(event, args):\n"
+        "    if event == 'open' and isinstance(args[0], (str, bytes,\n"
+        "                                              os.PathLike)):\n"
+        "        opened.append(os.path.realpath(os.fsdecode(args[0])))\n"
+        "sys.addaudithook(hook)\n"
+        "from protocol_tpu_torch.cli.main import main\n"
+        "a = sys.argv[1]\n"
+        "rcs = [main(['--assets', a, 'local-scores', '--backend',\n"
+        "             'torch-sparse', '--device', 'cpu']),\n"
+        "       main(['--assets', a, 'show']),\n"
+        "       main(['--assets', a, 'scenario', 'list'])]\n"
+        "print(json.dumps([rcs, opened]))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code, str(assets)],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    rcs, opened = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert rcs == [0, 0, 0]
+    assert any(p.endswith("scores.csv") for p in opened)
+    reference = str((ROOT / "protocol_tpu").resolve()) + os.sep
+    assert [p for p in opened if p.startswith(reference)] == []
+    assert (assets / "scores.csv").read_bytes() == (
+        ROOT / "protocol_tpu_torch" / "cli" / "assets" / "scores.csv"
+    ).read_bytes()
 
 
 def test_chip_smoke_refuses_to_run_without_gpu(tmp_path):
