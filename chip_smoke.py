@@ -67,6 +67,24 @@ equal to the exact path's scores.csv), the port's demo assets through
 the client's auto mode on 48 attestations taking the batched path with
 the scalar path's setup; the field kernels' launches there are counted.
 
+The trust-scores daemon carries both kernels (phase ``serve``): a
+state dir at 100,000 peers (Barabási–Albert, m = 8, about 1.6M
+filtered edges) written as one snapshot by the daemon's own codec,
+``TrustService`` built in process as the ``serve`` verb builds it
+(``batched_ingest=None``, the default device and thresholds), its
+restore and first, cold routed refresh timed (plan build apart), then
+1,024 attestations by 64 mnemonic signers in four waves through the
+local chain file it tails, each wave's signers recovered on the field
+kernels by the sink and its refresh served by the delta engine's
+ladder with no full build. Every served score of the signers and of
+1,000 seeded peers is held within 1e-3 of a float64 gather converge
+over the daemon's edge set, ``/metrics`` to the exposition lint and
+``/status`` to its keys; after the drain, ``python -m
+protocol_tpu_torch.cli serve`` restarts on the same state dir (its
+startup compaction recovers the WAL's signers in batch once more) and
+must serve the same scores, with ``store inspect``'s counts equal to
+its ``/status``.
+
 Every phase prints one JSON line; any failed check exits non-zero. The
 last lines are the ``kernels`` record, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. With no CUDA device, or outside
@@ -157,6 +175,24 @@ SCENARIO_PEERS = 1_000_000
 SCENARIO_SEED = 7
 SCENARIO_CAPTURE_RTOL = 1e-4
 
+
+# the trust-scores daemon (phase serve): 100,000 peers (the reference's
+# service evidence is stated at 100k edges and up), BA m = 8 (about 1.6M
+# filtered edges, 16x the routed threshold), 64 mnemonic signers posting
+# 1,024 attestations in four waves (three revisions of edges in the
+# snapshot and one new edge per signer and wave), then a restart
+# through the CLI on the same state dir
+SERVE_PEERS = 100_000
+SERVE_SEED = 11
+SERVE_SIGNERS = 64
+SERVE_WAVES = 4
+SERVE_REVISIONS = 3            # per signer and wave, plus one new edge
+SERVE_CHECKED = 1000           # seeded peers whose served score is held
+# |served - reference| <= rtol * max(|reference|, 1): the reference serve
+# smoke's bound against its oracle, and its restart phase's
+SERVE_SCORE_RTOL = 1e-3
+SERVE_RESTART_RTOL = 1e-3
+SERVE_TIMEOUT_S = 600.0        # any one wait of the phase
 
 class SmokeFailure(Exception):
     pass
@@ -1908,6 +1944,429 @@ def phase_scenario(device) -> int:
     return total
 
 
+def _http(url: str, path: str, timeout: float = 120.0):
+    """GET one route of a daemon: JSON, or the text of ``/metrics``."""
+    import urllib.request
+
+    with urllib.request.urlopen(url + path, timeout=timeout) as r:
+        body = r.read()
+    return body.decode() if path == "/metrics" else json.loads(body)
+
+
+def _series(text: str, name: str, **labels):
+    """Sum of every series of one metric family on a ``/metrics`` page
+    whose labels include ``labels`` (span names are exported with their
+    dots as underscores); None when there is none."""
+    want = [f'{k}="{v}"' for k, v in labels.items()]
+    total, seen = 0.0, False
+    for line in text.splitlines():
+        if line.startswith(name) and line[len(name):len(name) + 1] in " {" \
+                and all(w in line for w in want):
+            total += float(line.split()[-1])
+            seen = True
+    return total if seen else None
+
+
+def _wait_for(pred, what: str, timeout: float = SERVE_TIMEOUT_S) -> float:
+    t0 = time.perf_counter()
+    while not pred():
+        check(time.perf_counter() - t0 < timeout, f"timed out: {what}")
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+def _serve_seed(state_dir: Path, peers: int, rng) -> tuple:
+    """A state dir at ``peers`` peers: the filtered BA graph as one
+    format-2 snapshot written by the daemon's own codec, the first
+    SERVE_SIGNERS ids the mnemonic's signers, the rest seeded addresses,
+    no published table (the first refresh is cold) and an empty WAL."""
+    import numpy as np
+
+    from protocol_tpu_torch.client.eth import ecdsa_keypairs_from_mnemonic
+    from protocol_tpu_torch.graph import barabasi_albert_edges, filter_edges
+    from protocol_tpu_torch.service.refresh import ScoreTable
+    from protocol_tpu_torch.store import StateStore, encode_service_state
+
+    keys = ecdsa_keypairs_from_mnemonic(SCORES_MNEMONICS[0], SERVE_SIGNERS)
+    addrs = [kp.public_key.to_address_bytes() for kp in keys]
+    taken = set(addrs)
+    while len(addrs) < peers:
+        a = rng.bytes(20)
+        if a not in taken:
+            taken.add(a)
+            addrs.append(a)
+    src, dst, val = barabasi_albert_edges(peers, BA_M, seed=SERVE_SEED)
+    fsrc, fdst, _, _, _, raw, _ = filter_edges(peers, src, dst, val, None,
+                                               return_raw=True)
+    store = StateStore(str(state_dir))
+    empty = ScoreTable((), np.zeros(0), -1, 0, 0.0, True, 0.0)
+    arrays, meta = encode_service_state(addrs, fsrc, fdst, raw, 1, 0, 0,
+                                        empty, store.wal.position())
+    store.snapshots.save(1, arrays, meta)
+    store.close()
+    return keys, addrs, fsrc, fdst
+
+
+def _serve_churn(keys, addrs, fsrc, fdst, rng, domain: bytes) -> list:
+    """SERVE_WAVES waves of signed attestations: each signer revises
+    SERVE_REVISIONS of its edges in the snapshot and attests one peer it
+    has no edge to. Returns per wave ``[(signer id, signed), ...]``."""
+    import numpy as np
+
+    from protocol_tpu_torch.client import (
+        AttestationData,
+        SignatureData,
+        SignedAttestationData,
+    )
+
+    n = len(addrs)
+    waves = []
+    for _ in range(SERVE_WAVES):
+        wave = []
+        for i, kp in enumerate(keys):
+            lo, hi = np.searchsorted(fsrc, [i, i + 1])
+            nbrs = set(int(x) for x in fdst[lo:hi])
+            about = list(rng.choice(sorted(nbrs), SERVE_REVISIONS,
+                                    replace=False))
+            new = int(rng.integers(SERVE_SIGNERS, n))
+            while new in nbrs:
+                new = int(rng.integers(SERVE_SIGNERS, n))
+            for j in [*about, new]:
+                data = AttestationData(about=addrs[int(j)], domain=domain,
+                                       value=int(rng.integers(1, 11)))
+                sig = kp.sign(int(data.to_scalar().hash()))
+                wave.append((i, SignedAttestationData(
+                    data, SignatureData.from_signature(sig))))
+        waves.append(wave)
+    return waves
+
+
+def _save_local_chain(path: Path, chain) -> None:
+    """The chain file the daemon tails, replaced in one rename so a poll
+    never reads half of it."""
+    tmp = path.with_suffix(".tmp")
+    tmp.write_text(json.dumps(chain.to_json()))
+    os.replace(tmp, path)
+
+
+def _rung(before: dict, after: dict) -> str:
+    """The lowest ladder rung that served a refresh between two reads of
+    the refresher's counters."""
+    moved = {k for k in after if after[k] != before[k]}
+    for rung in ("device_partial", "sampled", "partial", "full"):
+        if rung in moved:
+            return rung
+    return "rebuild" if "refreshes" in moved else "none"
+
+
+def _rung_counters(r) -> dict:
+    return {"partial": r.partial_refreshes - r.device_partial_refreshes
+            - r.sampled_refreshes,
+            "device_partial": r.device_partial_refreshes,
+            "sampled": r.sampled_refreshes, "full": r.full_sweeps,
+            "refreshes": r.refreshes}
+
+
+def _readline(proc, timeout: float) -> str:
+    """One line of a child's stdout, or '' when none comes in time."""
+    import queue
+    import threading
+
+    q = queue.Queue()
+    threading.Thread(target=lambda: q.put(proc.stdout.readline()),
+                     daemon=True).start()
+    try:
+        return q.get(timeout=timeout)
+    except queue.Empty:
+        return ""
+
+
+def phase_serve(device, peers: int = SERVE_PEERS) -> dict:
+    """The trust-scores daemon on the card, at ``peers`` peers: seed a
+    state dir (one format-2 snapshot of the filtered BA graph), build
+    ``TrustService`` in process on the default device with the
+    ``serve`` verb's client (``batched_ingest=None``) and the default
+    thresholds and tolerances, time the restore and the first, cold
+    routed refresh (the plan build apart), post SERVE_WAVES waves of
+    signed attestations through the local chain file the daemon tails
+    (each wave one poll, so the sink recovers its signers on the field
+    kernels), and hold the daemon to: every served score of the signers
+    and of SERVE_CHECKED seeded peers within SERVE_SCORE_RTOL of a
+    float64 gather converge over its own edge set, no full build across
+    the churn, the exposition lint on ``/metrics``, the ``/status``
+    keys, and B1 and the three field kernels launched on this path.
+    Then drain it, restart it through ``python -m protocol_tpu_torch.cli
+    serve`` on the same state dir (the startup compaction folds the WAL
+    and recovers its signers on the card once more), hold its
+    ``/scores`` to the values before the stop within SERVE_RESTART_RTOL
+    and ``store inspect``'s counts to its ``/status``, and SIGTERM it."""
+    import signal
+
+    import numpy as np
+    import torch
+
+    from protocol_tpu_torch.backend import TorchSparseBackend
+    from protocol_tpu_torch.cli.fs import EigenFile
+    from protocol_tpu_torch.client import Client, ClientConfig, LocalChain
+    from protocol_tpu_torch.ops import kernels
+    from protocol_tpu_torch.ops.kernels import field_kernel as fk
+    from protocol_tpu_torch.service import ServiceConfig, TrustService
+    from protocol_tpu_torch.service.metrics import lint_exposition
+    from protocol_tpu_torch.service.tailer import FileBackedLocalChain
+    from protocol_tpu_torch.utils import trace
+
+    on_card = device.type == "cuda"
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SERVE_SEED)
+    res: dict = {"peers": peers}
+    proc = None
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as d:
+        files = EigenFile(Path(d))
+        state = files.service_state_dir()
+        t0 = time.perf_counter()
+        keys, addrs, fsrc, fdst = _serve_seed(state, peers, rng)
+        res["seed_s"] = time.perf_counter() - t0
+        res["edges"] = int(len(fsrc))
+        t0 = time.perf_counter()
+        config = ClientConfig()
+        waves = _serve_churn(keys, addrs, fsrc, fdst, rng,
+                             bytes.fromhex(config.domain[2:]))
+        res["sign_s"] = time.perf_counter() - t0
+        (files.assets / "config.json").write_text(json.dumps(
+            config.to_dict()))
+        chain = LocalChain()
+        _save_local_chain(files.chain_json(), chain)
+        # the serve verb's wiring: batched_ingest=None (the auto rule),
+        # the default device, the file-persisted local chain
+        client = Client(config, SCORES_MNEMONICS[0], batched_ingest=None,
+                        device=None if on_card else device)
+        client.chain = FileBackedLocalChain(files.chain_json())
+        svc_config = ServiceConfig(port=0, poll_interval=0.05,
+                                   refresh_interval=0.05)
+        trace.TRACER.reset()
+        if on_card:
+            torch.cuda.synchronize()
+        kernels.reset_launches()
+        fk.reset_launches()
+        t0 = time.perf_counter()
+        svc = TrustService(client, svc_config, str(state / "cursor"),
+                           files=files, state_dir=str(state))
+        res["restore_s"] = time.perf_counter() - t0
+        check(svc.graph.n == peers and svc.graph.n_edges == len(fsrc),
+              f"restored {svc.graph.n} peers and {svc.graph.n_edges} "
+              "edges, not the seeded graph")
+        try:
+            url = svc.start()
+            t0 = time.perf_counter()
+            _wait_for(lambda: svc.refresher.table.revision
+                      == svc.graph.revision, "the cold refresh")
+            res["cold_refresh_s"] = time.perf_counter() - t0
+            spans = trace.summary()
+            res["plan_build_s"] = spans["routed.plan_build"]["total_s"]
+            res["delta_anchor_s"] = spans["service.delta_anchor"]["total_s"]
+            table = svc.refresher.table
+            res["cold"] = {"iterations": table.iterations,
+                           "delta": table.delta, "cold": table.cold}
+            check(table.cold and svc.refresher.operator_builds == 1
+                  and svc.refresher.delta_engine is not None,
+                  "the first refresh was not one cold routed build with "
+                  "the delta engine anchored on it")
+            builds0 = _series(_http(url, "/metrics"),
+                              "ptpu_operator_full_builds_total")
+
+            posted, wave_res = 0, []
+            for wave in waves:
+                for i, signed in wave:
+                    att = signed.attestation
+                    chain.attest(addrs[i], [(att.about, att.get_key(),
+                                             signed.to_payload())])
+                before = _rung_counters(svc.refresher)
+                sink0 = trace.summary().get("service.tail_batch", {})
+                posted += len(wave)
+                t0 = time.perf_counter()
+                _save_local_chain(files.chain_json(), chain)
+                _wait_for(lambda: svc.tailer.attestations >= posted,
+                          "the wave's ingest")
+                ingest_s = time.perf_counter() - t0
+                _wait_for(lambda: svc.refresher.table.revision
+                          == svc.graph.revision, "the wave's refresh")
+                sink1 = trace.summary()["service.tail_batch"]
+                wave_res.append({
+                    "attestations": len(wave), "ingest_wall_s": ingest_s,
+                    "sink_s": sink1["total_s"] - sink0.get("total_s", 0.0),
+                    "to_published_s": time.perf_counter() - t0,
+                    "rung": _rung(before, _rung_counters(svc.refresher)),
+                    "iterations": svc.refresher.table.iterations})
+            if on_card:
+                torch.cuda.synchronize()
+            launches = {"lane_perm": kernels.LAUNCHES["lane_perm"],
+                        **{k: fk.LAUNCHES[k] for k in
+                           ("mont_mul", "add_mod", "sub_mod")}}
+            spans = trace.summary()
+            res["waves"] = wave_res
+            res["sink_s"] = spans["service.tail_batch"]["total_s"]
+            res["recover_s"] = spans["service.ingest"]["total_s"]
+            res["ingest_att_per_s"] = posted / res["sink_s"]
+            res["recover_att_per_s"] = posted / res["recover_s"]
+            res["snapshots_during_churn"] = spans.get(
+                "service.snapshot", {}).get("count", 0)
+            res["warm_refresh_s"] = [
+                w["to_published_s"] - w["ingest_wall_s"] for w in wave_res]
+            res["launches"] = launches
+            res["spans"] = sorted(spans)
+            check(svc.tailer.attestations == posted
+                  and svc.graph.invalid == 0,
+                  f"ingested {svc.tailer.attestations} of {posted} "
+                  f"attestations, {svc.graph.invalid} invalid")
+            check("service.recover_scalar" not in spans
+                  and "ingest.recover_batch" in spans,
+                  "the sink did not recover its signers in batch")
+
+            metrics = _http(url, "/metrics")
+            builds1 = _series(metrics, "ptpu_operator_full_builds_total")
+            res["full_builds"] = [builds0, builds1]
+            check(builds1 == builds0, f"full builds moved under churn: "
+                  f"{builds0} -> {builds1}")
+            check(svc.refresher.delta_batches >= SERVE_WAVES,
+                  f"{svc.refresher.delta_batches} churn windows absorbed")
+            errors = lint_exposition(metrics)
+            check(not errors, "scrape lint failed: " + "; ".join(errors[:5]))
+            needles = ["ptpu_http_request_seconds_bucket",
+                       "ptpu_wal_append_seconds_bucket",
+                       "ptpu_score_freshness_seconds",
+                       "ptpu_refresh_seconds_bucket",
+                       "ptpu_service_ingest_attestations_total",
+                       "ptpu_span_total"]
+            if on_card:
+                needles.append("ptpu_device_bytes_in_use")
+            missing = [n for n in needles if n not in metrics]
+            check(not missing, f"/metrics misses {missing}")
+            res["metrics_lines"] = len(metrics.splitlines())
+            status = _http(url, "/status")
+            missing = [k for k in ("uptime_seconds", "block_cursor", "graph",
+                                   "score_freshness_seconds",
+                                   "last_refresh", "queue")
+                       if k not in status]
+            check(not missing, f"/status misses {missing}")
+            fresh = status["score_freshness_seconds"]
+            check(status["graph"]["peers"] == peers
+                  and 0.0 <= fresh < 120.0,
+                  f"/status graph {status['graph']}, freshness {fresh}")
+            res["status"] = {k: status[k] for k in ("graph", "last_refresh",
+                                                    "delta")}
+
+            # the served scores against a float64 gather converge over
+            # the daemon's own edge set, on the same device
+            n, src, dst, val, revision, _ = svc.graph.snapshot()
+            check(revision == svc.refresher.table.revision,
+                  "the table trails the graph")
+            t0 = time.perf_counter()
+            ref, ref_iters, ref_delta = TorchSparseBackend(
+                dtype=torch.float64, device=device).converge_edges(
+                n, src, dst, val, np.ones(n, dtype=bool),
+                svc_config.initial_score, svc_config.max_iterations,
+                tol=svc_config.tol, alpha=svc_config.alpha)
+            res["reference"] = {"iterations": ref_iters, "delta": ref_delta,
+                                "s": time.perf_counter() - t0}
+            ids = list(range(SERVE_SIGNERS)) + sorted(
+                int(x) for x in rng.choice(np.arange(SERVE_SIGNERS, n),
+                                           SERVE_CHECKED, replace=False))
+            worst = 0.0
+            for i in ids:
+                got = _http(url, f"/score/0x{addrs[i].hex()}")["score"]
+                worst = max(worst, abs(got - ref[i]) / max(abs(ref[i]), 1.0))
+            res["served_max_rel_err"] = worst
+            res["served_checked"] = len(ids)
+            check(worst <= SERVE_SCORE_RTOL, f"a served score is {worst} "
+                  "relative from the float64 reference")
+            before = _http(url, "/scores")
+        finally:
+            t0 = time.perf_counter()
+            clean = svc.shutdown()
+            res["drain_s"] = time.perf_counter() - t0
+        check(clean, "the drain was not clean")
+
+        # restart through the CLI: the startup compaction (one segment is
+        # enough) folds the WAL and recovers its signers on the card
+        stream = Path(d) / "restart.jsonl"
+        env = dict(os.environ, PTPU_SERVE_WAL_COMPACT_SEGMENTS="1",
+                   PROTOCOL_TPU_TRACE=str(stream), PYTHONPATH=str(ROOT))
+        argv = [sys.executable, "-m", "protocol_tpu_torch.cli", "--assets",
+                d, "serve", "--port", "0", "--state-dir", str(state)]
+        if not on_card:
+            argv += ["--device", "cpu"]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(argv, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True, cwd=ROOT,
+                                env=env)
+        try:
+            line = _readline(proc, SERVE_TIMEOUT_S)
+            res["restart_to_listening_s"] = time.perf_counter() - t0
+            check("listening on http://" in line,
+                  f"the restarted daemon did not come up: {line!r}")
+            url2 = line.split("listening on ")[1].split()[0]
+            after = _http(url2, "/scores")
+            status2 = _http(url2, "/status")
+            metrics2 = _http(url2, "/metrics")
+            b = {r["address"]: r["score"] for r in before["scores"]}
+            a = {r["address"]: r["score"] for r in after["scores"]}
+            check(set(a) == set(b) and len(a) == peers,
+                  "the restarted daemon serves another peer set")
+            worst = max(abs(a[k] - v) / max(abs(v), 1.0) for k, v in b.items())
+            res["restart_max_rel_err"] = worst
+            check(worst <= SERVE_RESTART_RTOL,
+                  f"restarted scores differ by {worst} relative")
+            recovered = _series(metrics2, "ptpu_span_total",
+                                span="ingest_recover_batch")
+            res["restart"] = {
+                "replayed_records": status2["store"]["replayed_records"],
+                "wal_compact_s": _series(metrics2, "ptpu_span_seconds_total",
+                                         span="service_wal_compact"),
+                "recover_batch_spans": recovered,
+                "recover_batch_s": _series(metrics2,
+                                           "ptpu_span_seconds_total",
+                                           span="ingest_recover_batch"),
+                "scalar_spans": _series(metrics2, "ptpu_span_total",
+                                        span="service_recover_scalar")}
+            check(recovered and not res["restart"]["scalar_spans"],
+                  f"the restart did not recover in batch: {res['restart']}")
+            rc, text, err = _cli(["--assets", d, "store", "inspect",
+                                  "--state-dir", state])
+            check(rc == 0, f"store inspect failed: {err}")
+            wal = re.search(r"wal: (\d+) segment\(s\), (\d+) bytes, (\d+) "
+                            r"intact", text)
+            snaps = re.search(r"snapshots: (\d+)", text)
+            st = status2["store"]
+            res["store_inspect"] = text.splitlines()
+            check(wal is not None and snaps is not None
+                  and int(wal.group(1)) == st["wal_segments"]
+                  and int(wal.group(2)) == st["wal_bytes"]
+                  and int(snaps.group(1)) == st["snapshots"],
+                  f"store inspect {text!r} disagrees with /status {st}")
+            proc.send_signal(signal.SIGTERM)
+            out, err = proc.communicate(timeout=SERVE_TIMEOUT_S)
+            check(proc.returncode == 0 and "service drained" in out,
+                  f"the restarted daemon exited {proc.returncode}: {err}")
+            # the restarted daemon's own trace stream: its restore event
+            # (snapshot load and WAL replay) and the obs verb's lint
+            restored = [json.loads(ln) for ln in stream.read_text()
+                        .splitlines() if '"service.restored"' in ln]
+            check(len(restored) == 1, "no restore event in the stream")
+            res["restart"]["replay_s"] = restored[0]["seconds"]
+            rc, text, err = _cli(["obs", stream])
+            res["restart"]["obs"] = text.splitlines()[0] if text else err
+            check(rc == 0, f"obs rejected the daemon's stream: {err}")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    res["wall_s"] = time.perf_counter() - t_phase
+    emit("serve", **res)
+    for k, v in launches.items():
+        check(v > 0, f"{k} was not launched on the serve path")
+    return launches
+
+
 def _field_record(name: str, launches: int, err: int, times: dict) -> dict:
     t = times[(name, 262_144)]
     replaces = {"mont_mul": "protocol_tpu/ops/pallas_kernels.py:32",
@@ -1959,6 +2418,7 @@ def main() -> int:
         converge_launches = phase_field_converge(device)
         field_launches = phase_ingest(device)
         scores_launches = phase_scores(device)
+        serve_launches = phase_serve(device)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1978,13 +2438,15 @@ def main() -> int:
         "launches_by_path": {"converge": launches,
                              "churn": delta["lane_perm_launches"],
                              "topics": topics["lane_perm_launches"],
-                             "scenario": scenario_launches},
+                             "scenario": scenario_launches,
+                             "serve": serve_launches["lane_perm"]},
         "batched": topics["batched_stage"],
     }] + [dict(_field_record(k, field_launches[k], field_err[k],
                              field_times),
                launches_by_path={
                    "ingest": field_launches[k],
                    "scores": scores_launches[k],
+                   "serve": serve_launches[k],
                    **({"field_converge": converge_launches}
                       if k == "mont_mul" else {})})
           for k in ("mont_mul", "add_mod", "sub_mod")]}), flush=True)

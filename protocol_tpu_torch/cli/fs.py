@@ -79,8 +79,8 @@ class EigenFile:
 
     def service_state_dir(self) -> Path:
         """Root of the serve daemon's durable state store (WAL, graph
-        snapshots, operator cache, block cursor); the service is not ported
-        yet, the name is kept so both packages share one layout."""
+        snapshots, operator cache, block cursor); both packages share
+        this layout and its file formats."""
         return self.assets / "service-state"
 
     def proofs_dir(self) -> Path:

@@ -22,12 +22,21 @@
   ported yet and is refused.
 - ``profile`` runs a workload under the instrument layer and prints the
   per-stage report (``cli/profilecmd.py``): the reference's arguments
-  plus ``--device``; ``--workload refresh`` runs, ``prove`` and
-  ``daemon`` are refused until their slices are ported.
+  plus ``--device``; ``--workload refresh`` runs locally, ``daemon``
+  captures on a live ``serve`` daemon (``--url``), and ``prove`` is
+  refused until the device prover is ported.
 
-The proof verbs (``et-*``, ``th-*``, ``kzg-params``) and ``serve``,
-``store`` and ``obs`` wait for the prover and the service; argparse
-rejects them as unknown verbs.
+- ``serve`` runs the trust-scores daemon (``service``): the reference's
+  flags plus ``--device``; without a card and without ``--device cpu``
+  it fails before it binds a port or touches the state dir.
+  ``--follow`` is refused until the follower is ported, and
+  ``--shard-proves``/``--fabric`` until the device prover is.
+- ``store inspect|compact`` and ``obs`` are the reference's verbs; the
+  store's files and the trace streams are the same in both packages.
+
+The proof verbs (``et-*``, ``th-*``, ``kzg-params``), ``prove-worker``
+and ``fleet`` wait for the prover and the follower; argparse rejects
+them as unknown verbs.
 """
 
 from __future__ import annotations
@@ -113,6 +122,91 @@ def build_parser() -> argparse.ArgumentParser:
                        help="recover attestation signers on the device in "
                             "one batch")
         p.add_argument("--device", default=None, help=_DEVICE_HELP)
+
+    p = sub.add_parser(
+        "serve",
+        help="run the long-running trust-scores service (chain tailer, "
+             "incremental refresh, proof job queue, HTTP API)")
+    p.add_argument("--host", default=None, help="bind host (default "
+                   "127.0.0.1; PTPU_SERVE_HOST)")
+    p.add_argument("--port", type=int, default=None,
+                   help="bind port (0 = ephemeral; default 8799)")
+    p.add_argument("--poll-interval", type=float, default=None,
+                   help="seconds between chain polls")
+    p.add_argument("--tol", type=float, default=None,
+                   help="refresh stopping tolerance (relative L1)")
+    p.add_argument("--max-iterations", type=int, default=None)
+    p.add_argument("--queue-capacity", type=int, default=None,
+                   help="proof job backpressure bound (the shedding "
+                        "watermark defaults to it)")
+    p.add_argument("--workers", type=int, default=None,
+                   help="proof pool workers (default 0 = one per CUDA "
+                        "device; host-path workers on a CPU box)")
+    p.add_argument("--shard-proves", type=int, default=None,
+                   metavar="0|1",
+                   help="1: fan a single prove's work units out to idle "
+                        "pool workers (refused until the device prover "
+                        "is ported; default 0)")
+    p.add_argument("--fabric", type=int, default=None, metavar="0|1",
+                   help="1: publish sharded-prove work units to "
+                        "external prove-worker processes (refused until "
+                        "the device prover is ported; default 0)")
+    p.add_argument("--fabric-lease-ttl", type=float, default=None,
+                   help="seconds an external worker's unit lease "
+                        "lives without a heartbeat before the unit "
+                        "is reclaimed (default 5)")
+    p.add_argument("--shape", choices=["default", "tiny"], default=None,
+                   help="circuit shape served by proof jobs")
+    p.add_argument("--transcript", choices=["poseidon", "keccak"],
+                   default=None, help="default et-proof transcript")
+    p.add_argument("--state-dir", default=None,
+                   help="durable state store root (attestation WAL, "
+                        "graph snapshots, proof artifacts, operator "
+                        "cache; default <assets>/service-state) — "
+                        "restarts replay it instead of re-fetching "
+                        "pre-cursor blocks")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="block-cursor checkpoint directory "
+                        "(default <state-dir>/cursor)")
+    p.add_argument("--follow", default=None, metavar="LEADER_URL",
+                   help="run as a read replica of a leader daemon "
+                        "(refused until the follower is ported)")
+    p.add_argument("--device", default=None, help=_DEVICE_HELP)
+
+    p = sub.add_parser(
+        "obs",
+        help="observability tooling: validate a JSONL trace stream "
+             "(PROTOCOL_TPU_TRACE=<path> or the serve daemon's "
+             "stream, from either package) and render its span-"
+             "aggregate summary "
+             "(count/p50/p95 per stage)")
+    p.add_argument("path", help="JSONL trace stream to read")
+    p.add_argument("--jsonl", action="append", default=[],
+                   metavar="PATH", dest="extra_jsonl",
+                   help="merge additional JSONL streams into the view "
+                        "(repeatable) — e.g. a prove-worker's --trace "
+                        "stream joined with the leader's, so one job's "
+                        "trace id chains across processes")
+    p.add_argument("--follow", action="store_true",
+                   help="tail the stream, printing records as they land "
+                        "(Ctrl-C to stop)")
+    p.add_argument("--trace-id", dest="trace_id",
+                   help="print the span/event chain for one trace id "
+                        "(attestation digest prefix, job id — including "
+                        "its prover-stage spans and the pool worker "
+                        "that executed them, request id)")
+
+    p = sub.add_parser(
+        "store",
+        help="inspect or compact the serve daemon's durable state store")
+    p.add_argument("action", choices=["inspect", "compact"],
+                   help="inspect: WAL/snapshot/proof-artifact summary; "
+                        "compact: fold latest-wins duplicate "
+                        "attestations into a fresh WAL segment "
+                        "(run with the daemon stopped)")
+    p.add_argument("--state-dir", default=None,
+                   help="state store root (default "
+                        "<assets>/service-state)")
 
     p = sub.add_parser(
         "scenario",
@@ -533,6 +627,337 @@ def handle_show(args, files, config):
     print(json.dumps(config.to_dict(), indent=2))
 
 
+def handle_serve(args, files, config):
+    """Boot the long-running service (``service``) against the
+    configured chain and block until SIGTERM/SIGINT drains it. The
+    device is settled first: without a card and without ``--device
+    cpu`` the verb fails before it binds a port or touches the state
+    dir."""
+    device = cli_device(args.device)
+    if args.follow:
+        raise CliError("serve --follow (the read replica) is not ported "
+                       "yet (ROADMAP A4)")
+
+    from ..service import ServiceConfig, TrustService
+
+    svc_config = ServiceConfig.from_env(
+        host=args.host, port=args.port,
+        poll_interval=args.poll_interval, tol=args.tol,
+        max_iterations=args.max_iterations,
+        queue_capacity=args.queue_capacity,
+        pool_workers=args.workers,
+        shard_proves=args.shard_proves,
+        fabric=args.fabric, fabric_lease_ttl=args.fabric_lease_ttl,
+        proof_shape=args.shape, transcript=args.transcript,
+        state_dir=args.state_dir)
+    if svc_config.state_dir:
+        state_dir = Path(svc_config.state_dir)
+        if not state_dir.is_absolute():
+            state_dir = files.assets / state_dir
+    else:
+        state_dir = files.service_state_dir()
+    if args.checkpoint_dir:
+        ck_dir = Path(args.checkpoint_dir)
+        if not ck_dir.is_absolute():
+            ck_dir = files.assets / ck_dir
+    else:
+        # always under the state dir (a cursor without the WAL that
+        # holds its pre-cursor attestations must not be resumed)
+        ck_dir = state_dir / "cursor"
+    # batched_ingest=None → the Client's auto rule (batched signer
+    # recovery on the card from 32 lanes up); the batch verbs' False
+    # default would pin the daemon to scalar recovery forever
+    client = _make_client(files, config, batched_ingest=None,
+                          device=device)
+    if config.node_url == "memory":
+        # tail the file-persisted local chain so attest runs from OTHER
+        # processes are visible (the in-memory LocalChain a fresh Client
+        # builds would be a frozen snapshot)
+        from ..service.tailer import FileBackedLocalChain
+
+        client.chain = FileBackedLocalChain(files.chain_json())
+    service = TrustService(client, svc_config, str(ck_dir), files=files,
+                           state_dir=str(state_dir))
+    url = service.start()
+    service.install_signal_handlers()
+    replayed = service.store.replayed_records if service.store else 0
+    print(f"trust-scores service listening on {url} "
+          f"(chain: {config.node_url}, cursor: {service.tailer.cursor}, "
+          f"state: {state_dir}, replayed: {replayed}, device: {device}); "
+          "SIGTERM drains", flush=True)
+    service.wait()
+    if service.drain_clean:
+        print("service drained", flush=True)
+        return 0
+    # an overrun drain budget / cursor persist failure must surface to
+    # the supervisor (systemd restart-on-failure)
+    print("service drained UNCLEAN (timeout or persist failure)",
+          flush=True)
+    return 1
+
+
+def handle_obs(args, files, config):
+    """Offline observability: parse + validate a JSONL trace stream
+    (the ``PROTOCOL_TPU_TRACE`` / ``serve`` daemon output), render the
+    span-aggregate summary table, optionally follow the stream or print
+    one trace id's end-to-end chain. Exit 1 when invalid records were
+    seen — the stream is a machine-readable contract, not best-effort
+    logging."""
+    import time as _time
+    from collections import deque
+
+    from ..utils.trace import validate_record
+
+    def parse(line, lineno, invalid):
+        line = line.strip()
+        if not line:
+            return None
+        try:
+            obj = json.loads(line)
+        except ValueError:
+            invalid.append(f"line {lineno}: not JSON")
+            return None
+        err = validate_record(obj)
+        if err is not None:
+            invalid.append(f"line {lineno}: {err}")
+            return None
+        return obj
+
+    def matches(obj, trace_id):
+        return (obj.get("trace_id") == trace_id
+                or trace_id in (obj.get("trace_ids") or ()))
+
+    invalid: list = []
+    agg: dict = {}
+    durations: dict = {}  # per-stage duration samples for p50/p95
+    counts = {"span": 0, "event": 0, "metric": 0}
+    chain: list = []
+
+    def ingest(obj) -> None:
+        counts[obj["type"]] += 1
+        if obj["type"] == "span":
+            a = agg.setdefault(obj["name"],
+                               {"count": 0, "total_s": 0.0,
+                                "max_s": 0.0})
+            a["count"] += 1
+            a["total_s"] += obj["duration_s"]
+            a["max_s"] = max(a["max_s"], obj["duration_s"])
+            # bounded per-name sample window for the percentile
+            # columns (a daemon stream can hold millions of spans;
+            # deque(maxlen) keeps the append O(1))
+            if obj["name"] not in durations:
+                durations[obj["name"]] = deque(maxlen=16384)
+            durations[obj["name"]].append(obj["duration_s"])
+        if args.trace_id and matches(obj, args.trace_id):
+            chain.append(obj)
+
+    # size-rotation awareness (PTPU_TRACE_MAX_BYTES): a stream's `.1`
+    # sibling holds the OLDER records — fold it in first so aggregates
+    # cover the whole history and chains stay whole across a rotation
+    import os as _os
+
+    def _with_rotated(path: str) -> list:
+        sib = path + ".1"
+        return [sib, path] if _os.path.exists(sib) else [path]
+
+    # merged streams (--jsonl, repeatable): other processes' trace
+    # files fold into the same aggregate + chain view — the
+    # cross-process trace join (worker spans carry instance/role);
+    # the main stream's rotated sibling rides this loop too
+    extra_streams = [p for e in args.extra_jsonl
+                     for p in _with_rotated(e)]
+    extra_streams += _with_rotated(args.path)[:-1]
+    for extra in extra_streams:
+        try:
+            ef = open(extra)
+        except OSError as e:
+            raise EigenError("file_io_error",
+                             f"cannot open trace stream: {e}") from e
+        with ef:
+            e_lineno = 0
+            for line in ef:
+                e_lineno += 1
+                before = len(invalid)
+                obj = parse(line, e_lineno, invalid)
+                if obj is None:
+                    if len(invalid) > before:
+                        invalid[-1] = f"{extra} {invalid[-1]}"
+                    continue
+                ingest(obj)
+    try:
+        f = open(args.path)
+    except OSError as e:
+        raise EigenError("file_io_error",
+                         f"cannot open trace stream: {e}") from e
+    with f:
+        lineno = 0
+        for line in f:
+            lineno += 1
+            obj = parse(line, lineno, invalid)
+            if obj is None:
+                continue
+            ingest(obj)
+
+        shown = ", ".join([args.path, *args.extra_jsonl])
+        print(f"{shown}: {counts['span']} span(s), "
+              f"{counts['event']} event(s), {counts['metric']} "
+              f"metric(s), {len(invalid)} invalid record(s)")
+        for msg in invalid[:20]:
+            print(f"  invalid: {msg}", file=sys.stderr)
+        if agg:
+            from ..utils.trace import percentile
+
+            width = max(len(n) for n in agg)
+            print(f"{'span':<{width}}  {'n':>8}  {'total_s':>10}  "
+                  f"{'mean_ms':>9}  {'p50_ms':>9}  {'p95_ms':>9}  "
+                  f"{'max_s':>9}")
+            for name, a in sorted(agg.items(),
+                                  key=lambda kv: -kv[1]["total_s"]):
+                mean_ms = 1000.0 * a["total_s"] / a["count"]
+                # agg and durations are filled in lockstep in the span
+                # branch above, so the window is always present
+                d = durations[name]
+                p50_ms = 1000.0 * percentile(d, 0.50)
+                p95_ms = 1000.0 * percentile(d, 0.95)
+                print(f"{name:<{width}}  {a['count']:>8}  "
+                      f"{a['total_s']:>10.3f}  {mean_ms:>9.3f}  "
+                      f"{p50_ms:>9.3f}  {p95_ms:>9.3f}  "
+                      f"{a['max_s']:>9.3f}")
+        if args.trace_id:
+            print(f"\ntrace {args.trace_id}: {len(chain)} record(s)")
+            for obj in sorted(chain, key=lambda o: o.get("ts", 0.0)):
+                dur = (f" {obj['duration_s'] * 1000:.3f}ms"
+                       if obj["type"] == "span" else "")
+                ids = ""
+                if obj["type"] == "span":
+                    ids = (f" span={obj.get('span_id', '?')}"
+                           + (f" parent={obj['parent_id']}"
+                              if obj.get("parent_id") else ""))
+                # pool-worker attribution: which worker executed a
+                # proof job's prover stages
+                who = (f" worker={obj['worker']}"
+                       if obj.get("worker") else "")
+                # fleet attribution: which PROCESS emitted the record
+                # (merged streams / shipped span windows carry it)
+                inst = (f" instance={obj['instance']}"
+                        if obj.get("instance") else "")
+                rem = " remote=1" if obj.get("remote") else ""
+                print(f"  {obj.get('ts', 0.0):.6f} {obj['type']:<6} "
+                      f"{obj['name']}{dur}{ids}{who}{inst}{rem}")
+
+        if args.follow:
+            print("following (Ctrl-C to stop)...", file=sys.stderr)
+            try:
+                while True:
+                    line = f.readline()
+                    if not line:
+                        _time.sleep(0.2)
+                        continue
+                    lineno += 1
+                    if not line.strip():
+                        continue  # blank: skipped, not invalid
+                    before = len(invalid)
+                    obj = parse(line, lineno, invalid)
+                    if obj is None:
+                        if len(invalid) > before:
+                            print(f"  invalid: {invalid[-1]}",
+                                  file=sys.stderr)
+                        continue
+                    if args.trace_id and not matches(obj, args.trace_id):
+                        continue
+                    print(json.dumps(obj), flush=True)
+            except KeyboardInterrupt:
+                pass
+    return 1 if invalid else 0
+
+
+def handle_store(args, files, config):
+    """Offline maintenance of the serve daemon's state store: a
+    human-readable summary (``inspect``) and latest-wins WAL compaction
+    (``compact`` — duplicates folded by recovered (signer, about) key,
+    the chain store's own identity)."""
+    from pathlib import Path
+
+    from ..store import AttestationWAL, ProofArtifactStore
+
+    if args.state_dir:
+        state_dir = Path(args.state_dir)
+        if not state_dir.is_absolute():
+            state_dir = files.assets / state_dir
+    else:
+        state_dir = files.service_state_dir()
+    wal_dir = str(state_dir / "wal")
+
+    if args.action == "inspect":
+        # inspection must not mutate — and must be safe against a LIVE
+        # daemon: readonly WAL scan, sweep-free snapshot listing, and
+        # no directory creation anywhere
+        from ..store.snapshot import list_steps_readonly, read_meta_readonly
+
+        wal = AttestationWAL(wal_dir, readonly=True)
+        records = sum(1 for _ in wal.replay())
+        stats = wal.stats()
+        print(f"state dir: {state_dir}")
+        print(f"wal: {stats['segments']} segment(s), {stats['bytes']} "
+              f"bytes, {records} intact record(s), "
+              f"{stats['torn_skipped']} torn/corrupt scan stop(s)")
+        snap_dir = str(state_dir / "snapshots")
+        steps = list_steps_readonly(snap_dir)
+        if steps:
+            meta = read_meta_readonly(snap_dir, steps[-1]) or {}
+            print(f"snapshots: {len(steps)} (latest revision "
+                  f"{meta.get('revision')}, "
+                  f"{meta.get('n_attestations')} attestation(s), "
+                  f"wal position {meta.get('wal_segment')}:"
+                  f"{meta.get('wal_offset')})")
+        else:
+            print("snapshots: none")
+        # a CLI-launched daemon persists artifacts into the EigenFile
+        # assets layout (handle_serve passes files=); state_dir/proofs
+        # is the embedded/provers-injected fallback — report whichever
+        # actually exists
+        proofs_dir = files.proofs_dir()
+        if not proofs_dir.is_dir():
+            proofs_dir = state_dir / "proofs"
+        n_proofs = (ProofArtifactStore(str(proofs_dir)).count()
+                    if proofs_dir.is_dir() else 0)
+        print(f"proof artifacts: {n_proofs} ({proofs_dir})")
+        return 0
+
+    # compact: fold by the chain store's identity — (creator, about) —
+    # recovering each record's signer the way replay would; records that
+    # fail recovery are dropped (replay rejects them anyway)
+    from ..client.attestation import DOMAIN_PREFIX, SignedAttestationData
+    from ..client.eth import address_from_public_key
+
+    domain = bytes.fromhex(config.domain.removeprefix("0x"))
+    key = DOMAIN_PREFIX + domain
+
+    def fold_key(block, about, payload):
+        try:
+            signed = SignedAttestationData.from_log(about, key, payload)
+            signer = address_from_public_key(signed.recover_public_key())
+        except (EigenError, ValueError):
+            return None
+        return signer, about
+
+    from ..store.state_store import acquire_state_lock
+
+    lock = acquire_state_lock(str(state_dir))  # refuse a live daemon
+    try:
+        wal = AttestationWAL(wal_dir)
+        out = wal.compact(fold_key)
+        wal.close()
+    finally:
+        if lock is not None:
+            lock.close()
+    print(f"compacted: {out['records_in']} record(s) -> "
+          f"{out['records_out']} in segment {out['segment']} "
+          f"({out['dropped']} unrecoverable dropped, "
+          f"{out['segments_removed']} old segment(s) removed)")
+    return 0
+
+
 def handle_scenario(args, files, config):
     from .scenariocmd import handle_scenario as _handle
 
@@ -554,11 +979,14 @@ HANDLERS = {
     "bandada": handle_bandada,
     "deploy": handle_deploy,
     "local-scores": lambda a, f, c: handle_scores(a, f, c, local=True),
+    "obs": handle_obs,
     "profile": handle_profile,
     "scenario": handle_scenario,
     "scores": lambda a, f, c: handle_scores(a, f, c, local=False),
+    "serve": handle_serve,
     "show": handle_show,
     "sparse-scores": handle_sparse_scores,
+    "store": handle_store,
     "update": handle_update,
 }
 
@@ -567,7 +995,7 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     try:
         files = config = None
-        if args.command != "profile":  # profile reads and writes no assets
+        if args.command not in ("profile", "obs"):  # no assets read
             files = EigenFile(assets_dir(args.assets))
             config = _load_config(files)
         return HANDLERS[args.command](args, files, config) or 0

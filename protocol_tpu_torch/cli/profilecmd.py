@@ -7,10 +7,11 @@ a backend) on the verb, and the library functions
 ``run_delta_workload`` and ``run_sublinear_workload`` (the churn path:
 one routed build, a ``DeltaEngine`` anchor, churn windows, the refresh
 ladder) and ``run_scenario_workload`` (a sybil ring under both
-semirings), which the reference's CLI does not expose either. The
-``prove`` and ``daemon`` workloads need the device prover and the
-service, which are not ported yet: the verb refuses them with an error
-that names the missing slice.
+semirings), which the reference's CLI does not expose either;
+``daemon`` submits a ``profile`` capture job to a live ``serve`` daemon
+(``--url``) and reports its result. The ``prove`` workload needs the
+device prover, which is not ported yet: the verb refuses it with an
+error that names the missing slice.
 
 The run takes sync-span mode by default (``trace.sync_spans()``), so a
 span ends only when the card has finished its work; ``--xprof DIR``
@@ -29,10 +30,9 @@ import time
 
 from ..utils.errors import EigenError
 
-# the prove and daemon workloads wait for these slices of the port
+# the prove workload waits for this slice of the port
 _NOT_PORTED = {
-    "prove": "the device prover (ROADMAP A12)",
-    "daemon": "the service daemon (ROADMAP A9)",
+    "prove": "the device prover (ROADMAP A6)",
 }
 
 
@@ -285,6 +285,52 @@ def print_report(report: dict, out=None) -> None:
         print(f"STAGE_COVERAGE={report['coverage']:.4f}", file=out)
 
 
+def run_daemon_capture(url: str, seconds: float) -> dict:
+    """Submit a ``profile`` job to a live daemon and wait for the
+    capture window to close; returns the job result (the ``torch.profiler`` log dir on
+    the daemon's filesystem)."""
+    import urllib.error
+    import urllib.request
+
+    def call(method, path, body=None):
+        req = urllib.request.Request(
+            url.rstrip("/") + path, method=method,
+            data=(json.dumps(body).encode() if body is not None
+                  else None),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=30) as r:
+                return json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            # 429 = queue backpressure, 503 = draining — structured
+            # errors, not tracebacks
+            raise EigenError(
+                "service_busy",
+                f"daemon rejected {method} {path}: HTTP {e.code} "
+                f"{e.read()[:200].decode(errors='replace')}") from e
+        except urllib.error.URLError as e:
+            raise EigenError(
+                "connection_error",
+                f"cannot reach daemon at {url}: {e.reason}") from e
+
+    job = call("POST", "/proofs",
+               {"kind": "profile", "params": {"seconds": seconds}})
+    job_id = job["job_id"]
+    deadline = time.monotonic() + seconds + 120.0
+    while time.monotonic() < deadline:
+        job = call("GET", f"/proofs/{job_id}")
+        if job["status"] in ("done", "failed", "cancelled"):
+            break
+        time.sleep(min(1.0, seconds / 4 + 0.2))
+    if job["status"] != "done":
+        raise EigenError(
+            "service_busy",
+            f"daemon capture job {job_id} ended {job['status']}: "
+            f"{job.get('error')}")
+    return {"workload": "daemon", "url": url, "job_id": job_id,
+            **(job.get("result") or {})}
+
+
 def handle_profile(args) -> int:
     """Run the chosen workload under sync-span tracing (+ optional
     ``torch.profiler`` capture) and print/write the merged per-stage
@@ -304,13 +350,28 @@ def handle_profile(args) -> int:
     trace.install_compile_tracking()
     trace_id = f"profile-{trace.new_id()}"
 
+    if args.workload == "daemon":
+        # the capture runs on the daemon's side (its log dir comes back
+        # in the job result); a local capture would time an HTTP loop
+        if not args.url:
+            raise EigenError("config_error",
+                             "--workload daemon needs --url (a live "
+                             "serve daemon)")
+        if args.xprof:
+            print("note: --workload daemon captures on the daemon's "
+                  "filesystem (log_dir in the report); local --xprof "
+                  "ignored", file=sys.stderr)
+        args.xprof = None
     capture = (trace.device_trace(args.xprof) if args.xprof
                else contextlib.nullcontext())
     t0 = time.perf_counter()
     with trace.context(trace_id=trace_id), capture:
-        meta = run_refresh_workload(
-            n=args.n, m=args.edges_per_node, engine=args.engine,
-            tol=args.tol, repeat=args.repeat, device=args.device)
+        if args.workload == "daemon":
+            meta = run_daemon_capture(args.url, args.seconds)
+        else:
+            meta = run_refresh_workload(
+                n=args.n, m=args.edges_per_node, engine=args.engine,
+                tol=args.tol, repeat=args.repeat, device=args.device)
     total_wall = time.perf_counter() - t0
     meta["trace_id"] = trace_id
     if args.xprof:

@@ -317,7 +317,9 @@ class MockNode:
                 pass
 
         self._server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        # a short poll: stop() returns within 50 ms, not the default 0.5 s
         self._thread = threading.Thread(target=self._server.serve_forever,
+                                        kwargs={"poll_interval": 0.05},
                                         name="mocknode-http", daemon=True)
         self._thread.start()
         return f"http://127.0.0.1:{self._server.server_address[1]}"

@@ -10,7 +10,13 @@ kernels). Twins of ``tests/test_cli.py``.
 
 import csv
 import json
+import os
 import shutil
+import signal
+import subprocess
+import sys
+import time
+import urllib.request
 from pathlib import Path
 
 import pytest
@@ -64,10 +70,14 @@ def test_parser_accepts_the_ported_verbs_and_no_other():
         ("sparse-scores", ["--edges", "e.csv", "--n", "10"]),
         ("profile", ["--workload", "refresh"]),
         ("update", ["--chain-id", "1", "--node-url", "memory"]),
+        ("serve", ["--port", "0", "--state-dir", "st", "--device", "cpu"]),
+        ("store", ["inspect", "--state-dir", "st"]),
+        ("store", ["compact"]),
+        ("obs", ["trace.jsonl", "--trace-id", "abc"]),
     ]:
         assert parser.parse_args([verb, *extra]).command == verb
-    for verb in ("et-proof", "th-verify", "kzg-params", "serve", "store",
-                 "obs"):
+    for verb in ("et-proof", "th-verify", "kzg-params", "fleet",
+                 "prove-worker"):
         with pytest.raises(SystemExit):
             parser.parse_args([verb])
     with pytest.raises(SystemExit):  # the reference's backend names
@@ -245,3 +255,224 @@ def test_verbs_that_need_the_card_fail_without_one(tmp_path, capsys):
     assert not (assets / "scores.csv").exists()
     assert (assets / "attestations.csv").read_bytes() == \
         (PORT_ASSETS / "attestations.csv").read_bytes()
+
+
+def _two_peer_chain(assets, monkeypatch):
+    """Two peers attest each other in the port's file-persisted local
+    chain; returns their addresses."""
+    from protocol_tpu_torch.cli.fs import INSECURE_MNEMONIC
+    from protocol_tpu_torch.client.eth import ecdsa_keypairs_from_mnemonic
+
+    addrs = [ecdsa_keypairs_from_mnemonic(m, 1)[0]
+             .public_key.to_address_bytes() for m in (INSECURE_MNEMONIC, M2)]
+    monkeypatch.delenv("MNEMONIC", raising=False)
+    a = ["--assets", str(assets)]
+    assert port_main([*a, "attest", "--to", "0x" + addrs[1].hex(),
+                      "--score", "10"]) == 0
+    monkeypatch.setenv("MNEMONIC", M2)
+    assert port_main([*a, "attest", "--to", "0x" + addrs[0].hex(),
+                      "--score", "4"]) == 0
+    monkeypatch.delenv("MNEMONIC")
+    return addrs
+
+
+def test_serve_on_the_cpu_scores_and_drains_on_sigterm(tmp_path,
+                                                       monkeypatch):
+    """``serve --device cpu`` as its own process: it tails the local
+    chain the ``attest`` verb wrote, serves each peer's score within the
+    reference's smoke bound of the exact ``scores`` oracle, and a
+    SIGTERM drains it to exit code 0."""
+    assets = tmp_path / "assets"
+    addrs = _two_peer_chain(assets, monkeypatch)
+    assert port_main(["--assets", str(assets), "scores"]) == 0
+    with open(assets / "scores.csv") as f:
+        oracle = {bytes.fromhex(r["peer_address"].removeprefix("0x")):
+                  int(r["numerator"]) / int(r["denominator"])
+                  for r in csv.DictReader(f)}
+    env = dict(os.environ, PTPU_SERVE_REFRESH_INTERVAL="0.05",
+               PYTHONPATH=str(ROOT))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "protocol_tpu_torch.cli", "--assets",
+         str(assets), "serve", "--port", "0", "--device", "cpu",
+         "--poll-interval", "0.05"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=env, cwd=tmp_path)
+    try:
+        line = proc.stdout.readline()
+        assert "listening on http://" in line, proc.stderr.read()
+        url = line.split("listening on ")[1].split()[0]
+        deadline = time.monotonic() + 30
+        got = {}
+        while time.monotonic() < deadline and len(got) < 2:
+            try:
+                for a in addrs:
+                    with urllib.request.urlopen(
+                            f"{url}/score/0x{a.hex()}", timeout=5) as r:
+                        got[a] = json.loads(r.read())["score"]
+            except OSError:
+                time.sleep(0.05)
+        assert set(got) == set(oracle) == set(addrs)
+        for a, ref in oracle.items():
+            assert abs(got[a] - ref) <= 1e-3 * max(abs(ref), 1.0)
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=30)
+        assert proc.returncode == 0, err
+        assert "service drained" in out
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert (assets / "service-state" / "wal").is_dir()
+
+
+def _signed_wal_records(n):
+    """Signed attestations under the zero domain as WAL records: three
+    signers, each revising the same two edges, so compaction folds."""
+    from protocol_tpu_torch.client.attestation import (
+        AttestationData,
+        SignatureData,
+        SignedAttestationData,
+    )
+    from protocol_tpu_torch.client.eth import ecdsa_keypairs_from_mnemonic
+
+    kps = ecdsa_keypairs_from_mnemonic(
+        "test test test test test test test test test test test junk", 3)
+    out = []
+    for i in range(n):
+        att = AttestationData(about=bytes([i % 2 + 1]) * 20,
+                              domain=b"\x00" * 20, value=i + 1)
+        sig = kps[i % 3].sign(int(att.to_scalar().hash()))
+        signed = SignedAttestationData(att, SignatureData.from_signature(sig))
+        out.append((i + 1, att.about, signed.to_payload()))
+    return out
+
+
+def test_store_inspect_and_compact_match_the_reference(tmp_path, capsys):
+    """``store inspect`` prints the reference verb's report on the same
+    state dir, and ``store compact`` folds a copy of it to the same
+    report and the same WAL bytes."""
+    from protocol_tpu_torch.store import StateStore, encode_service_state
+
+    for d in ("ref", "port"):
+        shutil.copytree(PORT_ASSETS, tmp_path / d)
+    state = tmp_path / "ref" / "service-state"
+    store = StateStore(str(state), segment_bytes=300)
+    for rec in _signed_wal_records(9):
+        store.wal.append([rec])
+
+    class Table:
+        scores, revision, iterations = [1.0, 2.0], 3, 4
+        delta, cold, computed_at = 0.0, True, 5.0
+
+    arrays, meta = encode_service_state(
+        [b"\x01" * 20, b"\x02" * 20], [0], [1], [5.0], 3, 0, 0, Table(),
+        store.wal.position(), n_attestations=9)
+    store.snapshots.save(3, arrays, meta)
+    store.close()
+    shutil.copytree(state, tmp_path / "port" / "service-state")
+
+    capsys.readouterr()
+    outs = {}
+    for action in ("inspect", "compact", "inspect"):
+        assert both(tmp_path, "store", action) == (0, 0)
+        out = capsys.readouterr().out.replace(str(tmp_path / "ref"), "A") \
+            .replace(str(tmp_path / "port"), "A").splitlines()
+        half = len(out) // 2
+        assert out[:half] == out[half:], action
+        outs.setdefault(action, out[:half])
+    assert "9 intact record(s)" in outs["inspect"][1]
+    # six (signer, about) keys among nine records
+    assert outs["compact"][0].startswith("compacted: 9 record(s) -> 6")
+    wal = {d: {f.name: f.read_bytes() for f in
+               sorted((tmp_path / d / "service-state" / "wal").iterdir())}
+           for d in ("ref", "port")}
+    assert wal["ref"] == wal["port"] and len(wal["ref"]) == 1
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_obs_reads_a_trace_written_by_either_package(tmp_path, capsys,
+                                                      writer):
+    """``obs`` validates and summarises a JSONL trace stream written by
+    either package's tracer, with the reference verb's counts and
+    trace-id chain."""
+    if writer == "reference":
+        from protocol_tpu.utils import trace
+    else:
+        from protocol_tpu_torch.utils import trace
+    path = tmp_path / "trace.jsonl"
+    trace.enable(str(path))
+    try:
+        with trace.context(trace_id="t-1"):
+            with trace.span("service.refresh", n=3):
+                trace.event("service.restored", replayed=2)
+        trace.metric("service.refresh_total", 1)
+    finally:
+        trace.disable()
+        trace.TRACER.reset()
+    outs = []
+    for main in (ref_main, port_main):
+        assert main(["--assets", str(tmp_path), "obs", str(path),
+                     "--trace-id", "t-1"]) == 0
+        out = capsys.readouterr().out.splitlines()
+        # the counts line, then the table and chain without their times
+        outs.append((out[0], [ln.split()[:2] for ln in out[1:] if ln]))
+    assert outs[0] == outs[1]
+    assert "1 span(s), 1 event(s), 1 metric(s), 0 invalid" in outs[1][0]
+
+
+def test_serve_without_a_card_exits_before_it_binds(tmp_path, capsys,
+                                                     monkeypatch):
+    """With no GPU and no ``--device``, ``serve`` exits 1 naming
+    ``--device cpu`` before it binds a port or writes to the state
+    dir."""
+    import socket
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assets = tmp_path / "assets"
+    shutil.copytree(PORT_ASSETS, assets)
+    before = sorted(p.name for p in assets.iterdir())
+    bound = []
+    monkeypatch.setattr(socket.socket, "bind",
+                        lambda self, addr: bound.append(addr))
+    assert port_main(["--assets", str(assets), "serve", "--port", "0"]) == 1
+    err = capsys.readouterr().err
+    assert "no CUDA device" in err and "--device cpu" in err
+    assert bound == []
+    assert sorted(p.name for p in assets.iterdir()) == before
+
+
+def test_profile_daemon_workload_captures_on_a_live_daemon(tmp_path,
+                                                           capsys):
+    """``profile --workload daemon --url`` submits a ``profile`` job to
+    a live daemon and reports the job's result (the capture window
+    itself is ``test_torch_service``'s; a stand-in answers here)."""
+    from protocol_tpu_torch.client import Client, ClientConfig
+    from protocol_tpu_torch.service import ServiceConfig, TrustService
+
+    def capture(params):
+        return {"log_dir": str(tmp_path / "profiles" / "x"),
+                "seconds": params["seconds"]}
+
+    svc = TrustService(
+        Client(ClientConfig(), M2, device="cpu"), ServiceConfig(port=0),
+        str(tmp_path / "cursor"), provers={"profile": capture})
+    url = svc.start()
+    try:
+        out = tmp_path / "report.json"
+        assert port_main(["profile", "--workload", "daemon", "--url", url,
+                          "--seconds", "0.2", "--json", str(out)]) == 0
+        meta = json.loads(out.read_text())["meta"]
+        assert meta["workload"] == "daemon" and meta["seconds"] == 0.2
+        assert meta["job_id"].startswith("job-") and "log_dir" in meta
+    finally:
+        assert svc.shutdown() is True
+
+
+def test_serve_refuses_follow_until_the_follower_is_ported(tmp_path,
+                                                           capsys):
+    assets = tmp_path / "assets"
+    assert port_main(["--assets", str(assets), "serve", "--device", "cpu",
+                      "--follow", "http://127.0.0.1:1"]) == 1
+    err = capsys.readouterr().err
+    assert "--follow" in err and "A4" in err
+    assert not (assets / "service-state").exists()

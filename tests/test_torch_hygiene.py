@@ -65,7 +65,23 @@ def test_port_imports_neither_jax_nor_reference():
               "protocol_tpu_torch.cli.scenariocmd",
               "protocol_tpu_torch.scenarios.topologies",
               "protocol_tpu_torch.scenarios.metrics",
-              "protocol_tpu_torch.scenarios.runner"):
+              "protocol_tpu_torch.scenarios.runner",
+              "protocol_tpu_torch.utils.checkpoint",
+              "protocol_tpu_torch.store.wal",
+              "protocol_tpu_torch.store.snapshot",
+              "protocol_tpu_torch.store.artifacts",
+              "protocol_tpu_torch.store.state_store",
+              "protocol_tpu_torch.service.config",
+              "protocol_tpu_torch.service.state",
+              "protocol_tpu_torch.service.tailer",
+              "protocol_tpu_torch.service.refresh",
+              "protocol_tpu_torch.service.recorder",
+              "protocol_tpu_torch.service.pool",
+              "protocol_tpu_torch.service.provers",
+              "protocol_tpu_torch.service.replication",
+              "protocol_tpu_torch.service.bundle",
+              "protocol_tpu_torch.service.http_api",
+              "protocol_tpu_torch.service.daemon"):
         assert m in mods
 
 
@@ -109,6 +125,11 @@ def test_entry_points_raise_without_gpu():
         DeltaEngine.anchor(3, src, dst, val, None, op)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_refresh_workload(n=20)
+    from protocol_tpu_torch.service import OpinionGraph, ServiceConfig
+    from protocol_tpu_torch.service.refresh import ScoreRefresher
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ScoreRefresher(OpinionGraph(), ServiceConfig())
 
 
 def test_field_and_ingest_entry_points_raise_without_gpu():
