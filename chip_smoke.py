@@ -85,6 +85,27 @@ startup compaction recovers the WAL's signers in batch once more) and
 must serve the same scores, with ``store inspect``'s counts equal to
 its ``/status``.
 
+Last comes the EigenTrust proof (phase ``prove``): the device prover
+of ``zk/prover_tpu.py`` runs every field product on B2 and every sum on
+``add_mod``/``sub_mod``, its NTT's stage products on ``torch._int_mm``.
+The NTT (forward, inverse, coset) at 2^10, 2^16 and 2^20 must equal the
+host prover core's ``FieldKernel.ntt`` and its float64 plain version,
+each timed by graph replay beside its int8-operations bound; a
+``DeviceProver`` at k = 16 on seeded fixed and σ columns, in resident,
+"fixed" and streaming residency, must give the host core's ext chunks
+(plain and blinded), quotient chunks (``quotient_eval2``), 4n inverse
+and ζ-evaluations; a synthetic k = 14 circuit proved by
+``prove_fast_tpu`` on the card and ``prove_fast`` on the host from one
+seeded blinding stream must give the same bytes, and verify. Then the
+CLI at the tiny shape (2 peers, 2 iterations, k = 20): the seeded SRS
+from ``zk.api.generate_kzg_params`` where ``kzg-params`` writes it (the
+verb itself at k = 10), ``et-proving-key``, two mnemonics attesting
+each other, ``et-proof`` with rounds 3–4 on the card (device stages in
+``ptpu_prover_stage_seconds`` and B2 launches > 0, counted),
+``et-verify`` VALID, and INVALID with one proof byte flipped; and
+``profile --workload prove --k 18`` must cover its prove with its
+stage times (``--min-coverage``).
+
 Every phase prints one JSON line; any failed check exits non-zero. The
 last lines are the ``kernels`` record, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. With no CUDA device, or outside
@@ -193,6 +214,24 @@ SERVE_CHECKED = 1000           # seeded peers whose served score is held
 SERVE_SCORE_RTOL = 1e-3
 SERVE_RESTART_RTOL = 1e-3
 SERVE_TIMEOUT_S = 600.0        # any one wait of the phase
+
+# the proof path (phase prove): the NTT at three sizes (a test-sized
+# domain, the k = 16 prover's, the k = 20 prover's), the DeviceProver's
+# pieces at k = 16, a synthetic circuit proved on the card and on the
+# host at k = 14, the CLI's EigenTrust proof at the tiny shape (2 peers,
+# 2 iterations: 790k rows, k = 20; zk/api.py TINY_SHAPE and the
+# reference CLI's --shape tiny), and the profile verb's stage coverage
+# of a k = 18 prove
+PROVE_NTT_KS = (10, 16, 20)
+PROVE_DP_K = 16
+PROVE_LOCKSTEP_K = 14
+PROVE_PROFILE_K = 18
+PROVE_MIN_COVERAGE = 0.95
+PROVE_SRS_SEED = b"chip-smoke-srs"
+PROVE_MNEMONICS = SCORES_MNEMONICS[:2]  # the tiny shape holds 2 peers
+# H100 SXM dense int8 tensor-core rate (data sheet): the NTT's bound
+INT8_OPS_PER_S = 1979e12
+
 
 class SmokeFailure(Exception):
     pass
@@ -332,6 +371,7 @@ def ptxas_usage(log: str) -> dict:
 def phase_build() -> None:
     from protocol_tpu_torch import native
     from protocol_tpu_torch._build import build_log
+    from protocol_tpu_torch.native import prover as prover_native
     from protocol_tpu_torch.ops.kernels import field_kernel as fk
     from protocol_tpu_torch.ops.kernels import lane_perm_kernel as lp
 
@@ -341,18 +381,22 @@ def phase_build() -> None:
         return time.perf_counter() - t0, str(path.relative_to(ROOT))
 
     # one compiler per source, started together
-    with ThreadPoolExecutor(max_workers=3) as pool:
+    with ThreadPoolExecutor(max_workers=4) as pool:
         nv = pool.submit(timed, lp.build)
         nf = pool.submit(timed, fk.build)
         gx = pool.submit(timed, native.build)
-        ((nvcc_s, nvcc_lib), (field_s, field_lib),
-         (gxx_s, gxx_lib)) = nv.result(), nf.result(), gx.result()
+        gp = pool.submit(timed, prover_native.build)
+        ((nvcc_s, nvcc_lib), (field_s, field_lib), (gxx_s, gxx_lib),
+         (prover_s, prover_lib)) = (nv.result(), nf.result(), gx.result(),
+                                    gp.result())
     check(native.available(), "native planner did not load")
+    check(prover_native.available(), "the prover core did not load")
     usage = {}
     for lib in (nvcc_lib, field_lib):
         usage.update(ptxas_usage(build_log(ROOT / lib)))
     emit("build", nvcc_s=nvcc_s, nvcc_lib=nvcc_lib, field_nvcc_s=field_s,
-         field_lib=field_lib, gxx_s=gxx_s, gxx_lib=gxx_lib, usage=usage)
+         field_lib=field_lib, gxx_s=gxx_s, gxx_lib=gxx_lib,
+         prover_gxx_s=prover_s, prover_lib=prover_lib, usage=usage)
     check(len(usage) == 21, f"ptxas reported {sorted(usage)}, not the "
           "18 route-stage kernels (three forms, three dtypes, one vector "
           "or a batch) and the three field kernels")
@@ -2367,6 +2411,463 @@ def phase_serve(device, peers: int = SERVE_PEERS) -> dict:
     return launches
 
 
+# --- the proof path ------------------------------------------------------------
+
+def _rand_fr_u64(n: int, seed: int):
+    """(n, 4) u64 standard rows of seeded random Fr values."""
+    import numpy as np
+
+    from protocol_tpu_torch.utils.fields import BN254_FR_MODULUS as P
+
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 1 << 62, size=(n, 8), dtype=np.int64)
+    w = (w[:, 0::2].astype("<u8") << np.uint64(2)) ^ w[:, 1::2].astype("<u8")
+    w[:, 3] &= np.uint64((1 << 61) - 1)  # below 2^253 < p
+    check(P > 1 << 253, "Fr is wider than 253 bits")
+    return np.ascontiguousarray(w)
+
+
+def _fs_to_natural(rows_u64, A: int, B: int):
+    """FS-layout host rows (element k1 + k2·A at k1·B + k2) → natural."""
+    return rows_u64.reshape(A, B, 4).transpose(1, 0, 2).reshape(-1, 4)
+
+
+def _ntt_record(k: int, device) -> dict:
+    """Forward, inverse and coset NTT at 2^k against the host core's
+    ``FieldKernel`` and the plain stage product (float64 on the card),
+    each form timed by graph replay; the bound is the stage products'
+    int8 operations (or the planes' bytes, if larger)."""
+    import numpy as np
+    import torch
+
+    from protocol_tpu_torch.native import prover as native
+    from protocol_tpu_torch.ops import fieldops2 as f2
+    from protocol_tpu_torch.ops import ntt_tpu
+    from protocol_tpu_torch.utils.fields import BN254_FR_MODULUS as P
+    from protocol_tpu_torch.zk.domain import EvaluationDomain
+    from protocol_tpu_torch.zk.plonk import _find_coset_shifts
+
+    n = 1 << k
+    fk_host = native.FieldKernel(P)
+    plan = ntt_tpu.NttPlan.get(k, device)
+    A, B = plan.A, plan.B
+    omega = EvaluationDomain(k).omega
+    shift = _find_coset_shifts(4 * n, 2)[1]
+    vals = _rand_fr_u64(n, 1000 + k)
+    x = f2.upload_mont(vals, device)
+    coset = f2.powers_vector(shift, n, device)
+    forms = {
+        "ntt": (lambda v, mm=ntt_tpu.stage_matmul: ntt_tpu.ntt(v, plan, mm),
+                x),
+        "intt": (lambda v, mm=ntt_tpu.stage_matmul:
+                 ntt_tpu.intt(v, plan, mm), x),
+        "coset_ntt": (lambda v, mm=ntt_tpu.stage_matmul: ntt_tpu.ntt(
+            f2.mont_mul(v, coset), plan, mm), x),
+    }
+    host = {}
+    h = vals.copy()
+    fk_host.ntt(h, omega)
+    host["ntt"] = h
+    h = _fs_to_natural(vals, A, B).copy()  # intt takes FS layout input
+    fk_host.ntt(h, omega, inverse=True)
+    host["intt"] = h
+    h = vals.copy()
+    fk_host.coset_scale(h, shift)
+    fk_host.ntt(h, omega)
+    host["coset_ntt"] = h
+    rec = {"n": n, "A": A, "B": B}
+    ops = 2 * f2.L6 * f2.L6 * n * (A + B)  # 2 stages: 44·44 plane products
+    planes_bytes = 2 * f2.L6 * n + f2.L6 * (A * A + B * B) + 2 * 88 * n
+    bound_ms = max(planes_bytes / HBM_BYTES_PER_S,
+                   ops / INT8_OPS_PER_S) * 1e3
+    rec["bound_ms"] = bound_ms
+    rec["bound_by"] = ("operations" if ops / INT8_OPS_PER_S
+                       > planes_bytes / HBM_BYTES_PER_S else "bytes")
+    for name, (fn, inp) in forms.items():
+        ntt_tpu.reset_launches()
+        got = fn(inp)
+        launches = ntt_tpu.LAUNCHES["stage_matmul"]
+        check(launches == 2 * f2.L6, f"{name} at 2^{k} ran {launches} "
+              f"stage products, not {2 * f2.L6}")
+        if name == "ntt" or name == "coset_ntt":
+            got_host = _fs_to_natural(f2.download_std(got), A, B)
+        else:
+            got_host = f2.download_std(got)
+        check(np.array_equal(got_host, host[name]),
+              f"{name} at 2^{k} differs from the host core's")
+        plain = fn(inp, ntt_tpu.stage_matmul_plain)
+        check(torch.equal(plain, got),
+              f"{name} at 2^{k} differs from its plain version")
+        reps = 3 if k >= 20 else 10
+        t = graph_ms(lambda i: fn(inp), reps)
+        tp = graph_ms(lambda i: fn(inp, ntt_tpu.stage_matmul_plain),
+                      2 if k >= 20 else 5, replays=3)
+        rec[name] = {"ms": t["ms"], "plain_ms": tp["ms"]}
+    # one stage product alone (the row of PERF.md's table): the forward
+    # first stage's 44 _int_mm calls, and the same as float64
+    x6 = f2.to_planes(x.reshape(A, B, f2.L)).permute(2, 1, 0).contiguous()
+    lhs = x6.reshape(f2.L6 * B, A)
+    st = graph_ms(lambda i: [ntt_tpu.stage_matmul(lhs, plan.W_A[m])
+                             for m in range(f2.L6)], 3)
+    stp = graph_ms(lambda i: [ntt_tpu.stage_matmul_plain(lhs, plan.W_A[m])
+                              for m in range(f2.L6)], 2, replays=3)
+    st_ops = 2 * f2.L6 * f2.L6 * n * A
+    rec["stage_matmul"] = {
+        "ms": st["ms"], "plain_ms": stp["ms"], "launches": f2.L6,
+        "bound_ms": max(st_ops / INT8_OPS_PER_S,
+                        (f2.L6 * n + f2.L6 * A * A + 4 * f2.L6 * f2.L6 * n)
+                        / HBM_BYTES_PER_S) * 1e3}
+    return rec
+
+
+def _host_ext(fk_host, coeffs_u64, k: int, shift: int, blinds=None):
+    """The host oracle of an ext chunk set: blinded coefficients
+    zero-padded to 4n, coset-scaled, NTT'd (prove_fast's round 3)."""
+    import numpy as np
+
+    from protocol_tpu_torch.utils.fields import BN254_FR_MODULUS as P
+    from protocol_tpu_torch.zk.domain import EvaluationDomain
+
+    n = 1 << k
+    arr = np.zeros((4 * n, 4), dtype="<u8")
+    arr[:n] = coeffs_u64
+    for i, b in enumerate(blinds or ()):
+        lo = int.from_bytes(arr[i].tobytes(), "little")
+        hi = int.from_bytes(arr[n + i].tobytes(), "little")
+        arr[i] = np.frombuffer(((lo - b) % P).to_bytes(32, "little"), "<u8")
+        arr[n + i] = np.frombuffer(((hi + b) % P).to_bytes(32, "little"),
+                                   "<u8")
+    fk_host.coset_scale(arr, shift)
+    fk_host.ntt(arr, EvaluationDomain(k + 2).omega)
+    return arr
+
+
+def _chunks_host_order(dp, chunks):
+    """Device FS chunks → host ext order (element m = j + 4i)."""
+    import numpy as np
+
+    from protocol_tpu_torch.zk import prover_tpu as ptpu
+
+    out = np.zeros((4 * dp.n, 4), dtype="<u8")
+    for j, ch in enumerate(chunks):
+        out[j::4] = ptpu.download_std(ptpu.natural_from_fs(ch, dp.A, dp.B))
+    return out
+
+
+def _dp_pieces(device, k: int) -> dict:
+    """The DeviceProver at 2^k on seeded random fixed and σ columns, in
+    resident, "fixed" and streaming residency: ext chunks (plain and
+    blinded), the four quotient chunks (resident, streaming fused and
+    chained, fixed), the 4n inverse and the ζ-evaluations, each equal
+    to the host core's."""
+    import numpy as np
+
+    from protocol_tpu_torch.native import prover as native
+    from protocol_tpu_torch.utils.fields import BN254_FR_MODULUS as P
+    from protocol_tpu_torch.zk import prover_tpu as ptpu
+    from protocol_tpu_torch.zk.domain import EvaluationDomain
+    from protocol_tpu_torch.zk.plonk import _find_coset_shifts
+
+    n = 1 << k
+    ext_n = 4 * n
+    shift = _find_coset_shifts(ext_n, 2)[1]
+    fkh = native.FieldKernel(P)
+    d, de = EvaluationDomain(k), EvaluationDomain(k + 2)
+    fixed = [_rand_fr_u64(n, 100 + i) for i in range(9)]
+    sigma = [_rand_fr_u64(n, 200 + i) for i in range(6)]
+    t0 = time.perf_counter()
+    dp = ptpu.DeviceProver(k, shift, fixed, sigma, device=device)
+    init_s = time.perf_counter() - t0
+    dp_stream = ptpu.DeviceProver(k, shift, fixed, sigma,
+                                  ext_resident=False, device=device)
+    dp_fixed = ptpu.DeviceProver(k, shift, fixed, sigma,
+                                 ext_resident="fixed", device=device)
+    rec = {"k": k, "resident_init_s": init_s}
+
+    def host_ext(c, blinds=None):
+        return _host_ext(fkh, c, k, shift, blinds)
+
+    coeffs = _rand_fr_u64(n, 7)
+    blinds = [12345, 999, 31337]
+    dev_c = ptpu.upload_mont(coeffs, device)
+    check(np.array_equal(_chunks_host_order(dp, dp.ext_chunks(dev_c)),
+                         host_ext(coeffs)), "ext chunks differ from host")
+    check(np.array_equal(
+        _chunks_host_order(dp, dp.ext_chunks(dev_c, blinds)),
+        host_ext(coeffs, blinds)), "blinded ext chunks differ from host")
+
+    # the quotient on all four chunks against quotient_eval2
+    wires = [_rand_fr_u64(n, 300 + w) for w in range(6)]
+    z, m, phi = (_rand_fr_u64(n, s) for s in (400, 401, 402))
+    pi_ev = _rand_fr_u64(n, 403)
+    uv = [_rand_fr_u64(n, 404 + i) for i in range(4)]
+    rng = np.random.default_rng(21)
+    beta, gamma, beta_lk, alpha = [int(x) % P for x in
+                                   rng.integers(1, 2 ** 62, 4)]
+    shifts = _find_coset_shifts(n, 6)
+
+    def coeffs_of(evals):
+        c = evals.copy()
+        fkh.ntt(c, d.omega, inverse=True)
+        return c
+
+    def omega_shift(c):
+        c = c.copy()
+        fkh.coset_scale(c, d.omega)
+        return c
+
+    pi_c = coeffs_of(pi_ev)
+    xs = np.zeros((ext_n, 4), dtype="<u8")
+    xs[:] = np.frombuffer(int(shift).to_bytes(32, "little"), "<u8")
+    fkh.coset_scale(xs, de.omega)
+    w4, shift_n = pow(de.omega, n, P), pow(shift, n, P)
+    zh4 = [(shift_n * pow(w4, i, P) - 1) % P for i in range(4)]
+    zh_inv = np.tile(native.ints_to_limbs([pow(v, -1, P) for v in zh4]),
+                     (n, 1))
+    zh_tiled = np.tile(native.ints_to_limbs(zh4), (n, 1))
+    l0_den = fkh.scalar_mul(fkh.scalar_sub(xs, 1), n % P)
+    fkh.batch_inverse(l0_den)
+    t_host = fkh.quotient_eval(
+        np.stack([host_ext(c) for c in wires]), host_ext(z),
+        host_ext(omega_shift(z)), host_ext(m), host_ext(phi),
+        host_ext(omega_shift(phi)), np.stack([host_ext(c) for c in uv]),
+        np.stack([host_ext(coeffs_of(c)) for c in fixed]),
+        np.stack([host_ext(coeffs_of(c)) for c in sigma]), host_ext(pi_c),
+        xs, zh_inv, fkh.vec_mul(zh_tiled, l0_den), beta, gamma, beta_lk,
+        alpha, shifts)
+
+    def dev_ext(c):
+        return dp.ext_chunks(ptpu.upload_mont(c, device))
+
+    w_e = [dev_ext(c) for c in wires]
+    z_e, m_e, phi_e, pi_e = (dev_ext(c) for c in (z, m, phi, pi_c))
+    uv_e = [dev_ext(c) for c in uv]
+    for name, prover, fused in (("resident", dp, True),
+                                ("streaming_fused", dp_stream, True),
+                                ("streaming_chain", dp_stream, False),
+                                ("fixed", dp_fixed, False)):
+        prover.fused_quotient = fused
+        ch = prover.challenge_planes(beta, gamma, beta_lk, alpha, shifts)
+        t_dev = [prover.quotient_chunk(j, [w[j] for w in w_e], z_e[j],
+                                       m_e[j], phi_e[j], pi_e[j],
+                                       [u[j] for u in uv_e], ch)
+                 for j in range(4)]
+        check(np.array_equal(_chunks_host_order(prover, t_dev), t_host),
+              f"{name} quotient differs from the host's quotient_eval2")
+        rec[f"quotient_{name}"] = True
+
+    # the 4n inverse
+    ext_vals = _rand_fr_u64(ext_n, 11)
+    chunks = [ptpu.fs_from_natural(ptpu.upload_mont(
+        np.ascontiguousarray(ext_vals[j::4]), device), dp.A, dp.B)
+        for j in range(4)]
+    got = np.concatenate([ptpu.download_std(c) for c in dp.intt_ext(chunks)])
+    host = ext_vals.copy()
+    fkh.ntt(host, de.omega, inverse=True)
+    fkh.coset_scale(host, shift, invert=True)
+    check(np.array_equal(got, host), "intt_ext differs from the host")
+
+    # ζ-evaluations: barycentric from evals and ζ-power dots from coeffs
+    evals = _rand_fr_u64(n, 13)
+    zeta = 0x1234567890ABCDEF1234567
+    expect = fkh.poly_eval_many(coeffs_of(evals).reshape(1, n, 4), zeta)[0]
+    ev = ptpu.upload_mont(evals, device)
+    check(dp.eval_at(ev, zeta) == int(expect), "barycentric eval differs")
+    check(dp.eval_coeffs_at_many([dp.intt_natural(ev)], zeta)
+          == [int(expect)], "coefficient eval differs")
+    return rec
+
+
+def _lockstep(device, k: int) -> dict:
+    """A synthetic circuit proved by ``prove_fast_tpu`` on the card and
+    ``prove_fast`` on the host from one seeded blinding stream: the
+    proofs must be the same bytes, and verify."""
+    import random
+
+    from protocol_tpu_torch.cli.profilecmd import synthetic_circuit
+    from protocol_tpu_torch.utils.fields import BN254_FR_MODULUS as R
+    from protocol_tpu_torch.zk import prover_fast as pf
+    from protocol_tpu_torch.zk.plonk import verify
+
+    cs = synthetic_circuit(gates=(1 << k) - 64, seed=k, lookup_row=True)
+    params = pf.setup_params_fast(k, seed=b"chip-smoke-lockstep")
+    pk = pf.keygen_fast(params, cs, k=k, eval_pk=True)
+    r1, r2 = random.Random(42), random.Random(42)
+    t0 = time.perf_counter()
+    dev = pf.prove_fast_tpu(params, pk, cs, randint=lambda: r1.randrange(R),
+                            device=device)
+    dev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = pf.prove_fast(params, pk, cs, randint=lambda: r2.randrange(R))
+    host_s = time.perf_counter() - t0
+    check(dev == host, f"k={k}: the card's proof differs from the host's")
+    check(verify(params, pk, cs.public_values(), dev),
+          f"k={k}: the card's proof does not verify")
+    pf._DEVICE_PROVERS.clear()
+    return {"k": k, "rows": cs.num_rows, "device_prove_s": dev_s,
+            "host_prove_s": host_s, "bytes": len(dev)}
+
+
+def _stage_seconds(path: str) -> dict:
+    from protocol_tpu_torch.utils import trace
+
+    out: dict = {}
+    for items, s in trace.histogram("prover_stage_seconds").series():
+        labels = dict(items)
+        if labels.get("path") == path:
+            out[labels["stage"]] = out.get(labels["stage"], 0.0) + s["sum"]
+    return out
+
+
+# the device prove's round-3/4 stages (sync-span mode attributes the
+# device time to them); the ext-chunk NTTs of round 3 are launched early,
+# inside the round-1/2 stages, and commit.* are the host's MSMs
+DEVICE_R34_STAGES = ("quotient_chunks", "intt_ext", "evals", "openings")
+
+
+def _et_cli(device, rec: dict) -> dict:
+    """The proof verbs at the tiny shape on the card: the k = 20 SRS (the
+    api's, seeded, where ``kzg-params`` writes it; the verb itself once
+    at k = 10), ``et-proving-key``, two mnemonics attesting each other,
+    ``et-proof`` with rounds 3–4 on the card, ``et-verify`` VALID, and
+    INVALID on a flipped byte."""
+    import torch
+
+    from protocol_tpu_torch.cli.fs import EigenFile
+    from protocol_tpu_torch.client.eth import ecdsa_keypairs_from_mnemonic
+    from protocol_tpu_torch.ops import ntt_tpu
+    from protocol_tpu_torch.ops.kernels import field_kernel as fk
+    from protocol_tpu_torch.utils import trace
+    from protocol_tpu_torch.zk import api as zk
+    from protocol_tpu_torch.zk import prover_fast as pf
+
+    keys = [ecdsa_keypairs_from_mnemonic(m, 1)[0] for m in PROVE_MNEMONICS]
+    addrs = ["0x" + kp.public_key.to_address_bytes().hex() for kp in keys]
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as d:
+        files = EigenFile(Path(d))
+        rc, out, err = _cli(["--assets", d, "kzg-params", "--k", 10])
+        check(rc == 0 and files.kzg_params(10).exists(),
+              f"kzg-params --k 10: rc {rc} {err[-300:]}")
+        t0 = time.perf_counter()
+        files.kzg_params(20).write_bytes(
+            zk.generate_kzg_params(20, seed=PROVE_SRS_SEED))
+        rec["srs_k20_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rc, out, err = _cli(["--assets", d, "et-proving-key", "--shape",
+                             "tiny"])
+        rec["keygen_s"] = time.perf_counter() - t0
+        check(rc == 0, f"et-proving-key: rc {rc} {err[-300:]}")
+        rc = _cli(["--assets", d, "deploy"])[0]
+        check(rc == 0, "deploy failed")
+        for i, m in enumerate(PROVE_MNEMONICS):
+            rc, _, err = _cli(["--assets", d, "attest", "--to",
+                               addrs[1 - i], "--score", 40 + 30 * i],
+                              env={"MNEMONIC": m})
+            check(rc == 0, f"attest {i}: {err[-300:]}")
+        check(_cli(["--assets", d, "attestations"])[0] == 0,
+              "attestations failed")
+
+        trace.TRACER.reset_instruments()
+        trace.sync_spans(True)  # stage times carry their device work
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fk.reset_launches()
+        ntt_tpu.reset_launches()
+        t0 = time.perf_counter()
+        rc, out, err = _cli(["--assets", d, "et-proof", "--shape", "tiny"],
+                            env={"MNEMONIC": PROVE_MNEMONICS[0]})
+        rec["prove_s"] = time.perf_counter() - t0
+        trace.sync_spans(False)
+        check(rc == 0, f"et-proof: rc {rc} {err[-500:]}")
+        rec["launches"] = dict(fk.LAUNCHES)
+        rec["stage_matmul_launches"] = ntt_tpu.LAUNCHES["stage_matmul"]
+        rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+        stages = _stage_seconds("device")
+        rec["stages_s"] = stages
+        rec["host_commits_s"] = sum(v for k, v in stages.items()
+                                    if k.startswith("commit."))
+        rec["device_r34_s"] = sum(stages.get(k, 0.0)
+                                  for k in DEVICE_R34_STAGES)
+        check(stages.get("quotient_chunks", 0) > 0
+              and stages.get("intt_ext", 0) > 0,
+              f"the prove ran no device stage: {sorted(stages)}")
+        check(rec["launches"]["mont_mul"] > 0
+              and rec["launches"]["add_mod"] > 0
+              and rec["launches"]["sub_mod"] > 0
+              and rec["stage_matmul_launches"] > 0,
+              f"the prove launched {rec['launches']}")
+        pf._DEVICE_PROVERS.clear()
+
+        t0 = time.perf_counter()
+        rc, out, err = _cli(["--assets", d, "et-verify", "--shape", "tiny"])
+        rec["verify_s"] = time.perf_counter() - t0
+        check(rc == 0 and "VALID" in out and "INVALID" not in out,
+              f"et-verify: rc {rc} {out[-200:]} {err[-300:]}")
+        proof = bytearray(files.et_proof().read_bytes())
+        proof[len(proof) // 2] ^= 1
+        files.et_proof().write_bytes(bytes(proof))
+        rc, out, err = _cli(["--assets", d, "et-verify", "--shape", "tiny"])
+        check(rc == 1 and "INVALID" in out,
+              f"et-verify on a flipped byte: rc {rc} {out[-200:]}")
+        rec["proof_bytes"] = len(proof)
+    return rec
+
+
+def phase_prove(device) -> dict:
+    """The EigenTrust proof path on the card (``zk/prover_tpu.py``: rounds
+    3–4 of ``prove_fast_tpu``, every field product on B2 and every sum on
+    ``add_mod``/``sub_mod``, the NTT's stage products on ``_int_mm``);
+    returns the field kernels' launches of the k = 20 prove."""
+    import torch
+
+    from protocol_tpu_torch.native import prover as native
+
+    check(native.available(), "the prover core did not build")
+    t_phase = time.perf_counter()
+    ntt = {}
+    for k in PROVE_NTT_KS:
+        ntt[k] = _ntt_record(k, device)
+        emit("prove_ntt", **ntt[k])
+    torch.cuda.empty_cache()
+    dp = _dp_pieces(device, PROVE_DP_K)
+    emit("prove_device_prover", **dp)
+    torch.cuda.empty_cache()
+    lock = _lockstep(device, PROVE_LOCKSTEP_K)
+    emit("prove_lockstep", **lock)
+    rec = _et_cli(device, {})
+    emit("prove_et", **rec)
+    torch.cuda.empty_cache()
+
+    # stage attribution: the profile verb's coverage check, k = 18, on
+    # its own instruments (the verb reads every prover series)
+    from protocol_tpu_torch.utils import trace
+
+    trace.TRACER.reset_instruments()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as d:
+        report = Path(d) / "profile.json"
+        t0 = time.perf_counter()
+        rc, out, err = _cli(["profile", "--workload", "prove", "--k",
+                             PROVE_PROFILE_K, "--gates",
+                             (1 << PROVE_PROFILE_K) - 64, "--json", report,
+                             "--min-coverage", PROVE_MIN_COVERAGE])
+        prof_s = time.perf_counter() - t0
+        check(rc == 0, f"profile --workload prove: rc {rc} {err[-400:]}")
+        rep = json.loads(report.read_text())
+    emit("prove_profile", k=PROVE_PROFILE_K, wall_s=prof_s,
+         coverage=rep["coverage"], prove_total_s=rep["prove_total_s"],
+         stages={k: v["total_s"] for k, v in rep["stages"].items()})
+    from protocol_tpu_torch.zk import prover_fast as pf
+
+    pf._DEVICE_PROVERS.clear()
+    torch.cuda.empty_cache()
+    trace.sync_spans(False)  # the verb turned it on
+    emit("prove", wall_s=time.perf_counter() - t_phase,
+         ntt_ms={k: v["ntt"]["ms"] for k, v in ntt.items()},
+         prove_s=rec["prove_s"], host_commits_s=rec["host_commits_s"],
+         device_r34_s=rec["device_r34_s"], launches=rec["launches"])
+    return {"launches": rec["launches"], "ntt": ntt}
+
+
 def _field_record(name: str, launches: int, err: int, times: dict) -> dict:
     t = times[(name, 262_144)]
     replaces = {"mont_mul": "protocol_tpu/ops/pallas_kernels.py:32",
@@ -2419,6 +2920,7 @@ def main() -> int:
         field_launches = phase_ingest(device)
         scores_launches = phase_scores(device)
         serve_launches = phase_serve(device)
+        prove = phase_prove(device)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2447,6 +2949,7 @@ def main() -> int:
                    "ingest": field_launches[k],
                    "scores": scores_launches[k],
                    "serve": serve_launches[k],
+                   "prove": prove["launches"][k],
                    **({"field_converge": converge_launches}
                       if k == "mont_mul" else {})})
           for k in ("mont_mul", "add_mod", "sub_mod")]}), flush=True)

@@ -23,20 +23,29 @@
 - ``profile`` runs a workload under the instrument layer and prints the
   per-stage report (``cli/profilecmd.py``): the reference's arguments
   plus ``--device``; ``--workload refresh`` runs locally, ``daemon``
-  captures on a live ``serve`` daemon (``--url``), and ``prove`` is
-  refused until the device prover is ported.
+  captures on a live ``serve`` daemon (``--url``), and ``prove`` times
+  one proof through ``prove_auto`` with its stage coverage check.
+- ``kzg-params``, ``et-proving-key``, ``et-proof`` and ``et-verify``
+  are the reference's proof verbs, with its flags, files and exit codes
+  (``et-verify`` exits 1 on an invalid proof). ``et-proof`` also takes
+  ``--device``: rounds 3–4 of the prover run on the card (its
+  ``DeviceProver``), or on the host with ``--device cpu``; without a
+  card and without ``--device cpu`` it exits 1 naming the flag.
+  ``kzg-params``, ``et-proving-key`` and ``et-verify`` are host work
+  in both packages and take no card. The artifacts are the reference
+  package's, byte for byte, both ways.
 
 - ``serve`` runs the trust-scores daemon (``service``): the reference's
   flags plus ``--device``; without a card and without ``--device cpu``
   it fails before it binds a port or touches the state dir.
   ``--follow`` is refused until the follower is ported, and
-  ``--shard-proves``/``--fabric`` until the device prover is.
+  ``--shard-proves``/``--fabric`` until ROADMAP A6b.
 - ``store inspect|compact`` and ``obs`` are the reference's verbs; the
   store's files and the trace streams are the same in both packages.
 
-The proof verbs (``et-*``, ``th-*``, ``kzg-params``), ``prove-worker``
-and ``fleet`` wait for the prover and the follower; argparse rejects
-them as unknown verbs.
+``et-verifier``, the Threshold verbs (``th-*``) and ``prove-worker``
+wait for ROADMAP A6b, and ``fleet`` for the follower (A4); argparse
+rejects them as unknown verbs.
 """
 
 from __future__ import annotations
@@ -63,6 +72,7 @@ from ..utils.errors import EigenError
 from .fs import EigenFile, assets_dir, load_mnemonic
 
 _DEVICE_HELP = "torch device (default: cuda; 'cpu' to run on the CPU)"
+ET_PARAMS_K = 21
 
 
 class CliError(Exception):
@@ -109,6 +119,37 @@ def build_parser() -> argparse.ArgumentParser:
     sub.add_parser("deploy",
                    help="deploy the AttestationStation (local chain)")
 
+    def _et_shape_args(p):
+        p.add_argument("--shape", choices=["default", "tiny"],
+                       default="default",
+                       help="circuit instantiation: default = the "
+                            "EigenTrust4 shape (k=21 params), tiny = "
+                            "the 2-peer/2-iteration dev shape (k=20)")
+
+    p = sub.add_parser("et-proof", help="generate the EigenTrust proof")
+    _et_shape_args(p)
+    p.add_argument("--transcript", choices=["poseidon", "keccak"],
+                   default="poseidon",
+                   help="keccak emits the on-chain-cheap proof; poseidon "
+                        "keeps recursion parity with the aggregator")
+    p.add_argument("--device", default=None,
+                   help=_DEVICE_HELP + "; rounds 3-4 of the prover run "
+                        "there (cpu: the host prover)")
+    p = sub.add_parser("et-proving-key",
+                       help="generate the EigenTrust proving key")
+    _et_shape_args(p)
+    p = sub.add_parser("et-verify", help="verify the EigenTrust proof")
+    _et_shape_args(p)
+    p.add_argument("--transcript", choices=["auto", "poseidon", "keccak"],
+                   default="auto",
+                   help="auto reads et-proof.meta.json (falls back to "
+                        "poseidon) so a keccak proof can't be replayed "
+                        "under the wrong hash by default")
+
+    p = sub.add_parser("kzg-params", help="generate KZG params")
+    p.add_argument("--k", type=int, required=True,
+                   help="circuit degree 2^k rows")
+
     for verb, text in (("local-scores", "score attestations.csv offline"),
                        ("scores", "fetch attestations and compute scores")):
         p = sub.add_parser(verb, help=text)
@@ -145,12 +186,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--shard-proves", type=int, default=None,
                    metavar="0|1",
                    help="1: fan a single prove's work units out to idle "
-                        "pool workers (refused until the device prover "
-                        "is ported; default 0)")
+                        "pool workers (refused until ROADMAP A6b; "
+                        "default 0)")
     p.add_argument("--fabric", type=int, default=None, metavar="0|1",
                    help="1: publish sharded-prove work units to "
                         "external prove-worker processes (refused until "
-                        "the device prover is ported; default 0)")
+                        "ROADMAP A6b; default 0)")
     p.add_argument("--fabric-lease-ttl", type=float, default=None,
                    help="seconds an external worker's unit lease "
                         "lives without a heartbeat before the unit "
@@ -292,9 +333,11 @@ def build_parser() -> argparse.ArgumentParser:
              "torch.profiler capture) and emit a merged per-stage report")
     p.add_argument("--workload", choices=["prove", "refresh", "daemon"],
                    default="refresh",
-                   help="refresh: synthetic trust-graph converge through "
-                        "a backend; prove and daemon are not ported yet "
-                        "(refused)")
+                   help="prove: keygen + prove a synthetic circuit "
+                        "through prove_auto on --device; refresh: "
+                        "synthetic trust-graph converge through a "
+                        "backend; daemon: capture on a live serve daemon "
+                        "(--url)")
     p.add_argument("--k", type=int, default=7,
                    help="prove: domain exponent (synthetic circuit)")
     p.add_argument("--gates", type=int, default=64,
@@ -439,7 +482,8 @@ def _save_config(files: EigenFile, config: ClientConfig) -> None:
 
 
 def _make_client(files: EigenFile, config: ClientConfig,
-                 batched_ingest: bool = False, device=None) -> Client:
+                 batched_ingest: bool = False, device=None,
+                 shape=None) -> Client:
     chain = None
     if config.node_url == "memory":
         path = files.chain_json()
@@ -447,8 +491,13 @@ def _make_client(files: EigenFile, config: ClientConfig,
             chain = LocalChain.from_json(JSONFileStorage(path).load())
         else:
             chain = LocalChain()
+    kwargs = {}
+    if shape is not None:
+        kwargs["num_neighbours"] = shape.num_neighbours
+        kwargs["num_iterations"] = shape.num_iterations
+        kwargs["initial_score"] = shape.initial_score
     return Client(config, load_mnemonic(), chain=chain,
-                  batched_ingest=batched_ingest, device=device)
+                  batched_ingest=batched_ingest, device=device, **kwargs)
 
 
 def _save_chain(files: EigenFile, client: Client) -> None:
@@ -625,6 +674,83 @@ def handle_update(args, files, config):
 
 def handle_show(args, files, config):
     print(json.dumps(config.to_dict(), indent=2))
+
+
+def handle_kzg_params(args, files, config):
+    from ..zk import api as zk
+
+    data = zk.generate_kzg_params(args.k)
+    path = files.kzg_params(args.k)
+    path.write_bytes(data)
+    print(f"wrote {path} ({len(data)} bytes)")
+
+
+def _et_shape(args):
+    """(CircuitShape, params_k) for the --shape flag; "tiny" is the
+    2-peer dev instantiation whose 790k rows fit a k=20 SRS."""
+    from ..zk.api import DEFAULT_SHAPE, TINY_SHAPE
+
+    if getattr(args, "shape", "default") == "tiny":
+        return TINY_SHAPE, 20
+    return DEFAULT_SHAPE, ET_PARAMS_K
+
+
+def handle_et_pk(args, files, config):
+    from ..zk import api as zk
+
+    shape, params_k = _et_shape(args)
+    params = files.read(files.kzg_params(params_k))
+    pk = zk.generate_et_pk(params, shape=shape)
+    files.et_proving_key().write_bytes(pk)
+    print(f"wrote {files.et_proving_key()}")
+
+
+def handle_et_proof(args, files, config):
+    """The reference's verb, with rounds 3–4 on ``--device``: the card
+    is settled first, so a box without one fails before any work."""
+    from ..zk import api as zk
+
+    device = cli_device(args.device)
+    shape, params_k = _et_shape(args)
+    client = _make_client(files, config, device=device, shape=shape)
+    atts = _load_attestations(files)
+    setup = client.et_circuit_setup(atts)
+    params = files.read(files.kzg_params(params_k))
+    pk = files.read(files.et_proving_key())
+    proof = zk.generate_et_proof(params, pk, setup, shape=shape,
+                                 transcript=args.transcript, device=device)
+    files.et_proof().write_bytes(proof)
+    files.et_public_inputs().write_bytes(setup.pub_inputs.to_bytes())
+    files.et_proof_meta().write_text(
+        json.dumps({"transcript": args.transcript}))
+    print(f"wrote {files.et_proof()} and {files.et_public_inputs()}")
+
+
+def _resolve_transcript(args, files, fallback: str) -> str:
+    if args.transcript != "auto":
+        return args.transcript
+    meta = files.et_proof_meta()
+    if meta.exists():
+        try:
+            return json.loads(meta.read_text()).get("transcript", fallback)
+        except (ValueError, OSError):
+            pass
+    return fallback
+
+
+def handle_et_verify(args, files, config):
+    from ..zk import api as zk
+
+    shape, params_k = _et_shape(args)
+    transcript = _resolve_transcript(args, files, "poseidon")
+    params = files.read(files.kzg_params(params_k))
+    pk = files.read(files.et_proving_key())
+    proof = files.read(files.et_proof())
+    pub_inputs = files.read(files.et_public_inputs())
+    ok = zk.verify_et(params, pk, pub_inputs, proof, shape=shape,
+                      transcript=transcript)
+    print("EigenTrust proof: VALID" if ok else "EigenTrust proof: INVALID")
+    return 0 if ok else 1
 
 
 def handle_serve(args, files, config):
@@ -967,6 +1093,8 @@ def handle_scenario(args, files, config):
 def handle_profile(args, files, config):
     from .profilecmd import handle_profile as _handle
 
+    if args.workload in ("prove", "refresh"):
+        cli_device(args.device)  # no card and no --device: fail first
     try:
         return _handle(args)
     except RuntimeError as e:  # no GPU and no --device
@@ -978,6 +1106,10 @@ HANDLERS = {
     "attestations": handle_attestations,
     "bandada": handle_bandada,
     "deploy": handle_deploy,
+    "et-proof": handle_et_proof,
+    "et-proving-key": handle_et_pk,
+    "et-verify": handle_et_verify,
+    "kzg-params": handle_kzg_params,
     "local-scores": lambda a, f, c: handle_scores(a, f, c, local=True),
     "obs": handle_obs,
     "profile": handle_profile,

@@ -1,17 +1,17 @@
 """The ``profile`` CLI verb on torch: run a workload under the instrument
 layer and print a merged per-stage report.
 
-The port of ``protocol_tpu/cli/profilecmd.py`` for the workloads whose
-modules are ported: ``refresh`` (a synthetic trust-graph converge through
-a backend) on the verb, and the library functions
+The port of ``protocol_tpu/cli/profilecmd.py``: ``prove`` (keygen and
+one or more proofs of a synthetic circuit through ``prove_auto``, rounds
+3–4 on ``--device``, with the stage coverage check) and ``refresh`` (a
+synthetic trust-graph converge through a backend) on the verb, and the
+library functions
 ``run_delta_workload`` and ``run_sublinear_workload`` (the churn path:
 one routed build, a ``DeltaEngine`` anchor, churn windows, the refresh
 ladder) and ``run_scenario_workload`` (a sybil ring under both
 semirings), which the reference's CLI does not expose either;
 ``daemon`` submits a ``profile`` capture job to a live ``serve`` daemon
-(``--url``) and reports its result. The ``prove`` workload needs the
-device prover, which is not ported yet: the verb refuses it with an
-error that names the missing slice.
+(``--url``) and reports its result.
 
 The run takes sync-span mode by default (``trace.sync_spans()``), so a
 span ends only when the card has finished its work; ``--xprof DIR``
@@ -25,15 +25,62 @@ from __future__ import annotations
 
 import contextlib
 import json
+import random
 import sys
 import time
 
 from ..utils.errors import EigenError
 
-# the prove workload waits for this slice of the port
-_NOT_PORTED = {
-    "prove": "the device prover (ROADMAP A6)",
-}
+
+def synthetic_circuit(gates: int = 64, lookup_bits: int = 6,
+                      seed: int = 7, public_input: int = 12345,
+                      lookup_row: bool = False):
+    """The reference's tiny-circuit generator (its ``profile`` verb and
+    perf gate build circuits here): ``gates`` multiply-add rows and,
+    with ``lookup_row``, one copy-constrained lookup usage."""
+    from ..utils.fields import BN254_FR_MODULUS as R
+    from ..zk.plonk import ConstraintSystem
+
+    rng = random.Random(seed)
+    cs = ConstraintSystem(lookup_bits=lookup_bits)
+    for _ in range(gates):
+        a, b = rng.randrange(50), rng.randrange(50)
+        cs.add_row([a, b, (a * b + a) % R], q_a=1, q_mul_ab=1, q_c=R - 1)
+    if lookup_row:
+        lk = cs.lookup_row(37)
+        row = cs.add_row([37], q_a=1, q_const=R - 37)
+        cs.copy(lk, (0, row))
+    cs.public_input(public_input)
+    cs.check_satisfied()
+    return cs
+
+
+def run_prove_workload(k: int = 7, gates: int = 64, repeat: int = 1,
+                       seed: int = 7, device=None) -> dict:
+    """Keygen + prove a synthetic circuit on a 2^k domain through
+    ``prove_auto`` on ``device`` (the card by default — raises without
+    one; ``cpu``: the host path). Both paths are stage-attributed.
+    Returns workload metadata; timings land in the process tracer."""
+    from ..device import resolve_device
+    from ..native import prover as native
+    from ..zk import prover_fast as pf
+    from ..zk.plonk import verify
+
+    dev = resolve_device(device)
+    if not native.available():
+        raise EigenError("config_error",
+                         "the prove workload needs the native toolchain")
+    cs = synthetic_circuit(gates=gates, seed=seed, lookup_row=True)
+    params = pf.setup_params_fast(k, seed=b"profile")
+    pk = pf.keygen_fast(params, cs, k=k, eval_pk="auto")
+    proof = b""
+    for _ in range(max(1, repeat)):
+        proof = pf.prove_auto(params, pk, cs, device=dev)
+    if not verify(params, pk, cs.public_values(), proof):
+        raise EigenError("verification_error",
+                         "profile workload produced an invalid proof")
+    return {"workload": "prove", "k": k, "gates": gates,
+            "repeat": repeat, "rows": cs.num_rows, "device": str(dev)}
 
 
 def run_refresh_workload(n: int = 2000, m: int = 4,
@@ -194,8 +241,7 @@ def run_scenario_workload(peers: int = 4000, seed: int = 23,
 
 def fold_prover_stages() -> dict:
     """``ptpu_prover_stage_seconds`` series folded per stage label:
-    ``{stage: {count, total_s}}`` (empty until the prover is ported; the
-    report keeps the reference's shape)."""
+    ``{stage: {count, total_s}}``."""
     from ..utils import trace
 
     stages: dict = {}
@@ -337,12 +383,6 @@ def handle_profile(args) -> int:
     report."""
     from ..utils import trace
 
-    if args.workload in _NOT_PORTED:
-        raise EigenError(
-            "config_error",
-            f"--workload {args.workload} needs "
-            f"{_NOT_PORTED[args.workload]}, which the torch port does not "
-            "have yet")
     if args.jsonl or not trace.TRACER.enabled:
         # enable() closes any previously-opened stream before swapping
         trace.enable(args.jsonl)
@@ -368,6 +408,10 @@ def handle_profile(args) -> int:
     with trace.context(trace_id=trace_id), capture:
         if args.workload == "daemon":
             meta = run_daemon_capture(args.url, args.seconds)
+        elif args.workload == "prove":
+            meta = run_prove_workload(k=args.k, gates=args.gates,
+                                      repeat=args.repeat,
+                                      device=args.device)
         else:
             meta = run_refresh_workload(
                 n=args.n, m=args.edges_per_node, engine=args.engine,

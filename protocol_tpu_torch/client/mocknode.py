@@ -33,7 +33,7 @@ was modeled):
 - a creation transaction whose data is Yul source (the
   ``object "PlonkVerifier"`` artifact of the reference's zk stack)
   registers a verifier contract. Its calls need that stack's Yul EVM,
-  which comes to the port with the prover (ROADMAP A6): until then its
+  which comes to the port with the EVM verifier (ROADMAP A6b): until then its
   ``eth_call``/``eth_estimateGas`` answer an RPC error that says so.
 
 The port's copy of ``protocol_tpu/client/mocknode.py``; everything but

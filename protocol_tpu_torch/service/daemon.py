@@ -127,9 +127,9 @@ class TrustService:
         omitted, the graph and proof history are memory-only and only
         the cursor survives a restart."""
         if config.shard_proves or config.fabric:
-            # sharded proves and the cross-process fabric run prove
-            # stages, which need the device prover: refused before the
-            # state dir is touched
+            # sharded proves (the pool's worker lending) and the
+            # cross-process fabric are not ported yet: refused before
+            # the state dir is touched
             from .provers import refuse_unported
 
             refuse_unported("sharded proves (serve --shard-proves / "
@@ -269,11 +269,12 @@ class TrustService:
                     "config_error",
                     "need an EigenFile assets layout (files=) to build "
                     "the default provers, or pass provers= explicitly")
-            # the default registry: the capture window works, the
-            # eigentrust/threshold kinds fail their job until the
-            # prover is ported; affinity stays kind-keyed (the pool's
-            # default), as for an injected registry
-            provers = make_provers(self, files)
+            # the default registry: eigentrust proofs and the capture
+            # window; threshold jobs fail until ROADMAP A6b. Affinity
+            # stays kind-keyed (the pool's default)
+            provers = make_provers(self, files,
+                                   shape_name=config.proof_shape,
+                                   transcript=config.transcript)
         self.jobs = ProofWorkerPool(
             provers, capacity=config.queue_capacity, faults=self.faults,
             artifacts=self.store.artifacts if self.store else None,
@@ -795,7 +796,7 @@ class TrustService:
                 "queue_depth": self.jobs.depth(),
                 "graph_revision": self.graph.revision,
                 "score_revision": self.refresher.table.revision,
-                # no proving fabric until the device prover is ported
+                # no proving fabric until ROADMAP A6b
                 "fabric_workers": 0,
                 "followers": (len(self.repl_source.status()
                                   .get("followers", []))

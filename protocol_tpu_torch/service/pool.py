@@ -39,9 +39,9 @@ single driver, so an 8-device box minted the same proofs/hour as a
   an id (``rehydrate``);
 
 - the reference's worker lending (intra-prove shards) and its
-  cross-process fabric run prove stages, so they wait for the device
-  prover; a worker's ``lent_to``/``shards_run`` and the pool's shard
-  fields stay on ``GET /status`` with their idle values.
+  cross-process fabric are not ported yet (ROADMAP A6b); a worker's
+  ``lent_to``/``shards_run`` and the pool's shard fields stay on
+  ``GET /status`` with their idle values.
 
 Everything is visible: ``ptpu_proof_pool_depth`` /
 ``_worker_depth{worker}`` / ``_queued_bytes`` / ``_workers`` gauges,
@@ -390,7 +390,7 @@ class ProofWorkerPool:
     def pool_status(self) -> dict:
         """Per-worker rows + admission state for ``GET /status``. The
         shard and fabric fields keep the reference's schema; sharded
-        proves need the device prover, so they read empty here."""
+        proves wait for ROADMAP A6b, so they read empty here."""
         with self._lock:
             return {
                 "workers": [w.status_row() for w in self.workers],

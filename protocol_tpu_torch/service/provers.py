@@ -1,16 +1,22 @@
 """The proof pool's default registry and per-worker environment.
 
-The reference's registry mints EigenTrust and Threshold proofs through
-its device prover (``zk``), which the port does not carry yet: here the
-``eigentrust`` and ``threshold`` kinds fail their job with an
-``EigenError`` naming ROADMAP A6, and only the ``profile`` capture
-window runs. Injected registries work as in the reference. The
-per-worker environment pins each worker thread to its CUDA device.
+The port of ``protocol_tpu/service/provers.py``. The ``eigentrust`` kind
+mints the EigenTrust proof through ``zk.api.generate_et_proof`` over the
+live attestation set, as the reference does: rounds 3–4 on the worker's
+card (its ``DeviceProver``), the rest on the host. Artifact BYTES are
+loaded once (``ArtifactCache``) and the same objects go to ``zk.api`` on
+every job: its parse cache and the DeviceProver caches behind it key on
+byte-object identity, so a second job is a warm prove. The
+``threshold`` kind fails its job with an ``EigenError`` naming ROADMAP
+A6b (the Threshold circuit is not ported yet); ``profile`` is the
+capture window. Injected registries work as in the reference. The
+per-worker environment gives each worker thread a private DeviceProver
+cache pinned to its own CUDA device (``prover_fast.worker_isolation``).
 """
 
 from __future__ import annotations
 
-import contextlib
+import threading
 
 from ..utils import trace
 from ..utils.errors import EigenError
@@ -22,32 +28,78 @@ from ..utils.errors import EigenError
 # the byte-budget ceiling. Unknown (test-injected) kinds default to 0.
 PROOF_PRIORITIES = {"profile": 0, "threshold": 1, "eigentrust": 2}
 
-# what the eigentrust/threshold kinds, sharded proves and the proving
-# fabric need and the port does not have yet
-UNPORTED = "the device prover (zk), which is not ported yet (ROADMAP A6)"
+# what the threshold kind, sharded proves (the pool's worker lending)
+# and the proving fabric need and the port does not have yet
+UNPORTED = ("the rest of the prover stack, which is not ported yet "
+            "(ROADMAP A6b)")
 
 
 def refuse_unported(what: str):
-    """Raise the one error every prover-backed surface gives until the
-    zk stack is ported."""
+    """Raise the one error every not-yet-ported prover surface gives."""
     raise EigenError("config_error", f"{what} needs {UNPORTED}")
 
 
 def make_worker_env(_service=None):
-    """The pool's per-worker thread environment: the worker thread is
-    pinned to its own CUDA device (``torch.cuda.device``; CUDA's current
-    device is per thread). Host-path workers (no device, or a CPU one)
-    get no pin. No prover cache is held: there is no device prover."""
+    """The pool's per-worker thread environment: a private DeviceProver
+    cache (the suspend/resume single-driver assumption, per worker)
+    pinned to the worker's own CUDA device (``torch.cuda.device``;
+    CUDA's current device is per thread). Host-path workers (no device)
+    get the cache and no pin."""
 
     def env(worker):
-        import torch
+        from ..zk.prover_fast import worker_isolation
 
-        dev = worker.device
-        if dev is None or torch.device(dev).type != "cuda":
-            return contextlib.nullcontext()
-        return torch.cuda.device(dev)
+        return worker_isolation(worker.name, worker.device)
 
     return env
+
+
+def _shape_params_k(shape_name: str):
+    """(CircuitShape, et_params_k) for a served shape name."""
+    from ..cli.main import ET_PARAMS_K
+    from ..zk import api as zk
+
+    if shape_name == "tiny":
+        return zk.TINY_SHAPE, 20
+    return zk.DEFAULT_SHAPE, ET_PARAMS_K
+
+
+def _job_device(service):
+    """The torch device of a proof job's rounds 3–4: the CPU when the
+    service runs on it (``serve --device cpu``: the host prover), else
+    the worker's own card, else the service's device."""
+    import torch
+
+    from ..zk.prover_fast import current_dp_cache
+
+    dev = getattr(getattr(service, "client", None), "device", None)
+    if dev is not None and torch.device(dev).type == "cpu":
+        return torch.device("cpu")
+    return current_dp_cache().device or dev
+
+
+class ArtifactCache:
+    """Path → bytes, loaded once, identity-stable across jobs."""
+
+    def __init__(self):
+        self._cache: dict = {}
+        self._lock = threading.Lock()
+
+    def read(self, path) -> bytes:
+        key = str(path)
+        with self._lock:
+            data = self._cache.get(key)
+            if data is None:
+                try:
+                    data = path.read_bytes()
+                except OSError as e:
+                    raise EigenError(
+                        "file_io_error",
+                        f"missing proving artifact {path} — generate it "
+                        "with the kzg-params / et-proving-key verbs "
+                        "first") from e
+                self._cache[key] = data
+            return data
 
 
 def make_profile_prover(out_root) -> "callable":
@@ -100,19 +152,35 @@ def make_profile_prover(out_root) -> "callable":
     return profile
 
 
-def make_provers(service, files) -> dict:
+def make_provers(service, files, shape_name: str = "default",
+                 transcript: str = "keccak") -> dict:
     """The default registry for :class:`pool.ProofWorkerPool`: the
-    reference's three kinds. ``profile`` is the capture window; the
-    ``eigentrust`` and ``threshold`` jobs fail with an ``EigenError``
-    naming ROADMAP A6 until the prover is ported (injected registries
-    work as in the reference)."""
+    reference's three kinds. ``service`` supplies the live attestation
+    set and the Client (domain + circuit hyperparameters); ``files`` is
+    the ``cli.fs.EigenFile`` assets layout the batch verbs populate.
+    ``threshold`` jobs fail with an ``EigenError`` naming ROADMAP A6b."""
+    from ..zk import api as zk
 
-    def unported(kind):
-        def prove(params: dict) -> dict:
-            refuse_unported(f"a {kind} proof job")
+    shape, params_k = _shape_params_k(shape_name)
+    cache = ArtifactCache()
 
-        return prove
+    def eigentrust(params: dict) -> dict:
+        atts = service.attestation_snapshot()
+        setup = service.client.et_circuit_setup(atts)
+        tr = params.get("transcript", transcript)
+        proof = zk.generate_et_proof(
+            cache.read(files.kzg_params(params_k)),
+            cache.read(files.et_proving_key()),
+            setup, shape=shape, transcript=tr, device=_job_device(service))
+        return {
+            "proof": proof.hex(),
+            "public_inputs": setup.pub_inputs.to_bytes().hex(),
+            "transcript": tr,
+            "participants": len(setup.address_set),
+        }
 
-    return {"eigentrust": unported("eigentrust"),
-            "threshold": unported("threshold"),
+    def threshold(params: dict) -> dict:
+        refuse_unported("a threshold proof job")
+
+    return {"eigentrust": eigentrust, "threshold": threshold,
             "profile": make_profile_prover(files.assets)}

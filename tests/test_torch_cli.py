@@ -74,9 +74,14 @@ def test_parser_accepts_the_ported_verbs_and_no_other():
         ("store", ["inspect", "--state-dir", "st"]),
         ("store", ["compact"]),
         ("obs", ["trace.jsonl", "--trace-id", "abc"]),
+        ("kzg-params", ["--k", "10"]),
+        ("et-proving-key", ["--shape", "tiny"]),
+        ("et-proof", ["--shape", "tiny", "--transcript", "keccak",
+                      "--device", "cpu"]),
+        ("et-verify", ["--shape", "tiny", "--transcript", "auto"]),
     ]:
         assert parser.parse_args([verb, *extra]).command == verb
-    for verb in ("et-proof", "th-verify", "kzg-params", "fleet",
+    for verb in ("et-verifier", "th-verify", "th-proof", "fleet",
                  "prove-worker"):
         with pytest.raises(SystemExit):
             parser.parse_args([verb])

@@ -81,7 +81,26 @@ def test_port_imports_neither_jax_nor_reference():
               "protocol_tpu_torch.service.replication",
               "protocol_tpu_torch.service.bundle",
               "protocol_tpu_torch.service.http_api",
-              "protocol_tpu_torch.service.daemon"):
+              "protocol_tpu_torch.service.daemon",
+              "protocol_tpu_torch.native.prover",
+              "protocol_tpu_torch.ops.fieldops2",
+              "protocol_tpu_torch.ops.ntt_tpu",
+              "protocol_tpu_torch.zk.api",
+              "protocol_tpu_torch.zk.bn254",
+              "protocol_tpu_torch.zk.commit_engine",
+              "protocol_tpu_torch.zk.domain",
+              "protocol_tpu_torch.zk.ecc_chip",
+              "protocol_tpu_torch.zk.ecdsa_chip",
+              "protocol_tpu_torch.zk.eigentrust_circuit",
+              "protocol_tpu_torch.zk.gadgets",
+              "protocol_tpu_torch.zk.integer_chip",
+              "protocol_tpu_torch.zk.kzg",
+              "protocol_tpu_torch.zk.plonk",
+              "protocol_tpu_torch.zk.poseidon_chip",
+              "protocol_tpu_torch.zk.prover_fast",
+              "protocol_tpu_torch.zk.prover_tpu",
+              "protocol_tpu_torch.zk.shards",
+              "protocol_tpu_torch.zk.transcript"):
         assert m in mods
 
 
@@ -286,3 +305,25 @@ def test_concurrent_builds_share_one_library(tmp_path):
     left = sorted(f.name for f in (tmp_path / "build").iterdir())
     lib = Path(outs[0])  # no temp files; the compiler's log beside it
     assert left == [".probe.lock", lib.with_suffix(".log").name, lib.name]
+
+
+def test_prover_entry_points_raise_without_gpu():
+    """The device prover, ``prove_fast_tpu`` and the profile verb's
+    prove workload take the card unless told otherwise: with none they
+    raise before any work."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    from protocol_tpu_torch.cli.profilecmd import run_prove_workload
+    from protocol_tpu_torch.zk import prover_fast as pf
+    from protocol_tpu_torch.zk.prover_tpu import DeviceProver
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceProver(3, 7, [], [])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pf.DeviceProverCache().get(object())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_prove_workload(k=3)
+    from protocol_tpu_torch.zk.api import generate_et_proof
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate_et_proof(b"", b"", None)

@@ -782,23 +782,54 @@ def test_routed_plan_cost_is_the_sweeps_analytic_row(tmp_path):
     assert f32[1] - idx == (nbytes - idx) / 2
 
 
-def test_prover_backed_surfaces_name_the_missing_prover(tmp_path):
-    """Until the device prover is ported: ``shard_proves``/``fabric``
-    are refused before the state dir is touched, and the default
-    registry's proof jobs fail with an error naming ROADMAP A6 while
-    its ``profile`` kind stays."""
+def test_prover_backed_surfaces_name_the_missing_prover(tmp_path,
+                                                       monkeypatch):
+    """``shard_proves``/``fabric`` are refused before the state dir is
+    touched and ``threshold`` jobs fail, each naming ROADMAP A6b; the
+    default registry's ``eigentrust`` kind resolves to the port's
+    ``zk.api.generate_et_proof`` (stubbed here: no prove) with the
+    cached artifact bytes, the served shape and the job's device."""
+    from types import SimpleNamespace
+
     from protocol_tpu_torch.cli.fs import EigenFile
     from protocol_tpu_torch.service.provers import make_provers
+    from protocol_tpu_torch.zk import api as port_api
 
     client = Client(ClientConfig(), MNEMONIC, device="cpu")
     for knobs in ({"shard_proves": 1}, {"fabric": 1}):
-        with pytest.raises(EigenError, match="A6"):
+        with pytest.raises(EigenError, match="A6b"):
             TrustService(client, ServiceConfig(port=0, **knobs),
                          str(tmp_path / "cursor"),
                          state_dir=str(tmp_path / "state"))
     assert not (tmp_path / "state").exists()
-    provers = make_provers(None, EigenFile(tmp_path))
+
+    files = EigenFile(tmp_path)
+    files.kzg_params(20).write_bytes(b"srs")
+    files.et_proving_key().write_bytes(b"pk")
+    setup = SimpleNamespace(
+        address_set=[b"\x01" * 20, b"\x02" * 20],
+        pub_inputs=SimpleNamespace(to_bytes=lambda: b"pubs"))
+    service = SimpleNamespace(
+        attestation_snapshot=lambda: ["att"],
+        client=SimpleNamespace(device=torch.device("cpu"),
+                               et_circuit_setup=lambda atts: setup))
+    calls = []
+
+    def fake_proof(params, pk, setup_, shape, transcript, device):
+        calls.append((params, pk, setup_, shape, transcript, device))
+        return b"proof"
+
+    monkeypatch.setattr(port_api, "generate_et_proof", fake_proof)
+    provers = make_provers(service, files, shape_name="tiny")
     assert sorted(provers) == ["eigentrust", "profile", "threshold"]
-    for kind in ("eigentrust", "threshold"):
-        with pytest.raises(EigenError, match="not ported yet.*A6"):
-            provers[kind]({})
+    out = provers["eigentrust"]({"transcript": "poseidon"})
+    assert out == {"proof": b"proof".hex(), "public_inputs": b"pubs".hex(),
+                   "transcript": "poseidon", "participants": 2}
+    (params, pk, setup_, shape, transcript, device), = calls
+    assert (params, pk, setup_, transcript) == (b"srs", b"pk", setup,
+                                                "poseidon")
+    assert shape == port_api.TINY_SHAPE and device == torch.device("cpu")
+    provers["eigentrust"]({})
+    assert calls[1][0] is params and calls[1][4] == "keccak"  # cached
+    with pytest.raises(EigenError, match="not ported yet.*A6b"):
+        provers["threshold"]({})
