@@ -46,14 +46,14 @@ as made, 16-byte-misaligned views and broadcast rows, and Python ints
 on sampled lanes), times them by CUDA-graph replay (device time without
 the host's pacing) and back to back at 32,768, 262,144 and 819,200
 lanes beside their bounds, runs ``field_converge`` at N = 512 against a
-host Python-int converge, and ingests 262,144 signed attestations
+host Python-int converge, and ingests 65,536 signed attestations
 (1,024 distinct ones by 64 signers, tiled, with forged lanes at known
 indices) through ``recover_signers_batch``: every honest lane must
 recover its signer, every forged one must not, and the field kernels'
 launches per chunk must be the path's.
 
 Two user-facing paths carry the kernels too. ``scenario``: the
-adversarial harness's ``scenario run`` verb on a 1M-peer sybil ring
+adversarial harness's ``scenario run`` verb on a 300,000-peer sybil ring
 (seed 7) with ``--engine routed``, once per semiring, each held against
 the same run with ``--engine sparse`` (under ``maxplus`` every field
 equal but the residual, a float32 sum in another order; under
@@ -102,9 +102,24 @@ from ``zk.api.generate_kzg_params`` where ``kzg-params`` writes it (the
 verb itself at k = 10), ``et-proving-key``, two mnemonics attesting
 each other, ``et-proof`` with rounds 3–4 on the card (device stages in
 ``ptpu_prover_stage_seconds`` and B2 launches > 0, counted),
-``et-verify`` VALID, and INVALID with one proof byte flipped; and
-``profile --workload prove --k 18`` must cover its prove with its
-stage times (``--min-coverage``).
+``et-verify`` VALID, and INVALID with one proof byte flipped;
+``et-verifier --check`` must replay the card's proof VALID in the
+in-repo Yul EVM (with its gas) and INVALID with the byte flipped, and
+``et-verifier --rpc`` must deploy the verifier to an in-process
+``MockNode`` and verify VALID on-chain; and ``profile --workload prove
+--k 18`` must cover its prove with its stage times (``--min-coverage``).
+
+Then the Threshold proof (phase ``threshold``), through the CLI's verbs
+at their only shape (4 peers, 20 iterations, k = 21): a seeded k = 21
+SRS, four mnemonics attesting each other, ``th-proving-key`` (a dummy
+inner EigenTrust snark keyed and proved, then the Threshold circuit
+that verifies it in-circuit keyed), ``th-proof`` in the same process
+(the inner snark and the Threshold circuit, both proved with rounds
+3–4 on the card: two device proves and no host prove, B2 and its
+companions launched), its ``threshold_check`` equal to the host's
+``Client.verify_threshold``, ``th-verify`` VALID (the PLONK verify
+plus the deferred KZG decide on the 16 accumulator limbs) and INVALID
+with one proof byte flipped.
 
 Every phase prints one JSON line; any failed check exits non-zero. The
 last lines are the ``kernels`` record, the card's name and power limit,
@@ -175,7 +190,10 @@ FIELD_LAUNCHES_PER_CHUNK = {"mont_mul": 5449, "add_mod": 2568,
                             "sub_mod": 2110}
 CONVERGE_N = 512               # the largest set mont_matvec takes for Fr
 CONVERGE_ITERATIONS = 20       # the client's converge iterations
-INGEST_ATTESTATIONS = 262_144  # 8 chunks of the service's 32,768
+# 2 chunks of the service's 32,768: cut from 8 chunks (262,144) to keep
+# the smoke, phase threshold included, inside its time limit; every
+# per-chunk check runs on each chunk
+INGEST_ATTESTATIONS = 65_536
 INGEST_CHUNK = 32_768
 INGEST_DISTINCT = 1024
 INGEST_SIGNERS = 64
@@ -190,9 +208,11 @@ SCORES_MNEMONICS = (
     "abandon abandon abandon abandon abandon abandon abandon abandon "
     "abandon abandon abandon about")
 AUTO_ATTESTATIONS = 48
-# the adversarial harness (phase scenario): a sybil ring at the largest
-# size bench.py's scenario cells name, under both semirings
-SCENARIO_PEERS = 1_000_000
+# the adversarial harness (phase scenario): a sybil ring under both
+# semirings, cut from the largest size bench.py's scenario cells name
+# (1M peers) to keep the smoke, phase threshold included, inside its
+# time limit
+SCENARIO_PEERS = 300_000
 SCENARIO_SEED = 7
 SCENARIO_CAPTURE_RTOL = 1e-4
 
@@ -229,6 +249,11 @@ PROVE_PROFILE_K = 18
 PROVE_MIN_COVERAGE = 0.95
 PROVE_SRS_SEED = b"chip-smoke-srs"
 PROVE_MNEMONICS = SCORES_MNEMONICS[:2]  # the tiny shape holds 2 peers
+# phase threshold: the CLI's only Threshold shape (4 peers, 20
+# iterations, both proves at TH_PARAMS_K = 21) on a seeded SRS
+TH_SRS_SEED = b"chip-smoke-th-srs"
+TH_PEER = 2                    # the participant whose score is checked
+TH_THRESHOLD = 500             # under every score of the four-peer ring
 # H100 SXM dense int8 tensor-core rate (data sheet): the NTT's bound
 INT8_OPS_PER_S = 1979e12
 
@@ -1559,10 +1584,10 @@ def _ingest_fixture(rng):
 
 
 def phase_ingest(device) -> dict:
-    """The slice's path: 262,144 signed attestations through
-    ``recover_signers_batch`` (8 pipelined chunks), then one chunk alone,
+    """The slice's path: INGEST_ATTESTATIONS signed attestations through
+    ``recover_signers_batch`` (pipelined chunks), then one chunk alone,
     with and without ``full_verify``; returns each field kernel's
-    launches on the 262,144 run."""
+    launches on the whole run."""
     import numpy as np
     import torch
 
@@ -1882,7 +1907,7 @@ def _compare_reports(routed: dict, sparse: dict, semiring: str) -> dict:
 
 
 def phase_scenario(device) -> int:
-    """``scenario run --topology sybil-ring --peers 1000000 --seed 7
+    """``scenario run --topology sybil-ring --peers SCENARIO_PEERS --seed 7
     --engine routed --timing`` through the CLI, once per semiring, each
     held against the same run with ``--engine sparse``; the lane_perm
     launches of each routed run must equal (edge-route stages +
@@ -2803,13 +2828,53 @@ def _et_cli(device, rec: dict) -> dict:
         rec["verify_s"] = time.perf_counter() - t0
         check(rc == 0 and "VALID" in out and "INVALID" not in out,
               f"et-verify: rc {rc} {out[-200:]} {err[-300:]}")
+        rec["evm"] = _et_verifier(d)
         proof = bytearray(files.et_proof().read_bytes())
         proof[len(proof) // 2] ^= 1
         files.et_proof().write_bytes(bytes(proof))
         rc, out, err = _cli(["--assets", d, "et-verify", "--shape", "tiny"])
         check(rc == 1 and "INVALID" in out,
               f"et-verify on a flipped byte: rc {rc} {out[-200:]}")
+        rc, out, err = _cli(["--assets", d, "et-verifier", "--shape", "tiny",
+                             "--check"])
+        check(rc == 1 and "EVM replay: INVALID" in out,
+              f"et-verifier --check on a flipped byte: rc {rc} "
+              f"{out[-200:]} {err[-300:]}")
         rec["proof_bytes"] = len(proof)
+    return rec
+
+
+def _et_verifier(d: str) -> dict:
+    """The EVM verifier of the card's proof: ``et-verifier --check``
+    (its transcript from ``et-proof.meta.json``) must replay VALID in
+    the in-repo Yul EVM, and ``--rpc`` must deploy it to an in-process
+    ``MockNode`` and verify VALID on-chain. Returns the gas and walls."""
+    from protocol_tpu_torch.client.mocknode import MockNode
+
+    rec: dict = {}
+    t0 = time.perf_counter()
+    rc, out, err = _cli(["--assets", d, "et-verifier", "--shape", "tiny",
+                         "--check"])
+    rec["check_s"] = time.perf_counter() - t0
+    check(rc == 0 and "EVM replay: VALID" in out,
+          f"et-verifier --check: rc {rc} {out[-300:]} {err[-300:]}")
+    m = re.search(r"EVM replay: VALID \((\d+) gas, (\w+) transcript", out)
+    check(m is not None, f"et-verifier --check printed {out[-300:]}")
+    rec["replay_gas"], rec["transcript"] = int(m.group(1)), m.group(2)
+    node = MockNode()
+    url = node.start()
+    try:
+        t0 = time.perf_counter()
+        rc, out, err = _cli(["--assets", d, "et-verifier", "--shape", "tiny",
+                             "--rpc", url],
+                            env={"MNEMONIC": PROVE_MNEMONICS[0]})
+        rec["rpc_s"] = time.perf_counter() - t0
+    finally:
+        node.stop()
+    m = re.search(r"on-chain verify at 0x[0-9a-f]+: VALID \((\d+) gas", out)
+    check(rc == 0 and m is not None,
+          f"et-verifier --rpc: rc {rc} {out[-300:]} {err[-300:]}")
+    rec["onchain_gas"] = int(m.group(1))
     return rec
 
 
@@ -2868,6 +2933,176 @@ def phase_prove(device) -> dict:
     return {"launches": rec["launches"], "ntt": ntt}
 
 
+def _proves_by_path() -> dict:
+    """{path: proves} from the prover's whole-prove histogram."""
+    from protocol_tpu_torch.utils import trace
+
+    out: dict = {}
+    for items, s in trace.histogram("prover_total_seconds").series():
+        labels = dict(items)
+        key = f"{labels.get('path')}/k{labels.get('k')}"
+        out[key] = out.get(key, 0) + s["count"]
+    return out
+
+
+def _th_spans() -> dict:
+    from protocol_tpu_torch.utils import trace
+
+    return {k: v["total_s"] for k, v in trace.summary().items()
+            if k.startswith("th.")}
+
+
+def phase_threshold(device) -> dict:
+    """The Threshold flow through the CLI's verbs at its only shape (4
+    peers, 20 iterations, k = 21): a seeded k = 21 SRS where
+    ``kzg-params`` writes it, ``deploy``, 12 ``attest``s by the four
+    mnemonics, ``attestations``, ``th-proving-key`` (keygen and prove a
+    dummy inner EigenTrust snark, then keygen the Threshold circuit
+    that aggregates it), ``th-proof`` in the same process (the inner
+    snark and the Threshold circuit, both proved with rounds 3–4 on the
+    card), its ``threshold_check`` equal to ``Client.verify_threshold``
+    on the host, ``th-verify`` VALID (the PLONK verify plus the deferred
+    KZG decide on the 16 accumulator limbs) and INVALID on a flipped
+    byte. Returns the field kernels' launches of th-proving-key and
+    th-proof together."""
+    import torch
+
+    from protocol_tpu_torch.cli.fs import EigenFile
+    from protocol_tpu_torch.cli.main import (
+        TH_PARAMS_K,
+        _load_attestations,
+        _load_config,
+    )
+    from protocol_tpu_torch.client import Client
+    from protocol_tpu_torch.client.circuit_io import ThPublicInputs
+    from protocol_tpu_torch.client.eth import ecdsa_keypairs_from_mnemonic
+    from protocol_tpu_torch.ops import ntt_tpu
+    from protocol_tpu_torch.ops.kernels import field_kernel as fk
+    from protocol_tpu_torch.utils import trace
+    from protocol_tpu_torch.zk import api as zk
+    from protocol_tpu_torch.zk import prover_fast as pf
+
+    t_phase = time.perf_counter()
+    rec: dict = {"k": TH_PARAMS_K}
+    keys = [ecdsa_keypairs_from_mnemonic(m, 1)[0] for m in SCORES_MNEMONICS]
+    addrs = ["0x" + kp.public_key.to_address_bytes().hex() for kp in keys]
+    saved = os.environ.get("PTPU_TH_CACHE_DIR")
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as d:
+        files = EigenFile(Path(d))
+        # the dummy inner snark holds a k = 21 key: keep it in the
+        # temporary assets, gone with them
+        os.environ["PTPU_TH_CACHE_DIR"] = str(Path(d) / "th-cache")
+        try:
+            t0 = time.perf_counter()
+            files.kzg_params(TH_PARAMS_K).write_bytes(
+                zk.generate_kzg_params(TH_PARAMS_K, seed=TH_SRS_SEED))
+            rec["srs_s"] = time.perf_counter() - t0
+            check(_cli(["--assets", d, "deploy"])[0] == 0, "deploy failed")
+            for i, m in enumerate(SCORES_MNEMONICS):
+                for j, about in enumerate(addrs):
+                    if i != j:
+                        rc, _, err = _cli(["--assets", d, "attest", "--to",
+                                           about, "--score",
+                                           10 + 20 * i + 3 * j],
+                                          env={"MNEMONIC": m})
+                        check(rc == 0, f"attest {i}->{j}: {err[-300:]}")
+            check(_cli(["--assets", d, "attestations"])[0] == 0,
+                  "attestations failed")
+
+            trace.TRACER.reset()
+            trace.TRACER.reset_instruments()
+            trace.sync_spans(True)  # stage times carry their device work
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fk.reset_launches()
+            ntt_tpu.reset_launches()
+            t0 = time.perf_counter()
+            rc, out, err = _cli(["--assets", d, "th-proving-key"])
+            rec["th_pk_s"] = time.perf_counter() - t0
+            check(rc == 0 and files.th_proving_key().exists(),
+                  f"th-proving-key: rc {rc} {err[-800:]}")
+            rec["th_pk_peak_device_bytes"] = torch.cuda.max_memory_allocated()
+            rec["th_pk_launches"] = dict(fk.LAUNCHES)
+            rec["th_pk_proves"] = _proves_by_path()
+            rec["th_pk_spans_s"] = _th_spans()
+            check(rec["th_pk_proves"] == {"device/k21": 1},
+                  f"th-proving-key proved {rec['th_pk_proves']}")
+
+            trace.TRACER.reset()
+            trace.TRACER.reset_instruments()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            rc, out, err = _cli(["--assets", d, "th-proof", "--peer",
+                                 addrs[TH_PEER], "--threshold",
+                                 TH_THRESHOLD])
+            rec["th_proof_s"] = time.perf_counter() - t0
+            trace.sync_spans(False)
+            check(rc == 0, f"th-proof: rc {rc} {err[-800:]}")
+            rec["th_proof_peak_device_bytes"] = \
+                torch.cuda.max_memory_allocated()
+            rec["launches"] = dict(fk.LAUNCHES)
+            rec["th_proof_launches"] = {
+                k: v - rec["th_pk_launches"].get(k, 0)
+                for k, v in rec["launches"].items()}
+            rec["stage_matmul_launches"] = ntt_tpu.LAUNCHES["stage_matmul"]
+            rec["th_proof_proves"] = _proves_by_path()
+            rec["th_proof_spans_s"] = _th_spans()
+            stages = _stage_seconds("device")
+            rec["th_proof_stages_s"] = stages
+            rec["th_proof_host_commits_s"] = sum(
+                v for k, v in stages.items() if k.startswith("commit."))
+            rec["th_proof_device_r34_s"] = sum(
+                stages.get(k, 0.0) for k in DEVICE_R34_STAGES)
+            # both proves (inner EigenTrust snark, outer Threshold
+            # circuit) on the card, none on the host
+            check(rec["th_proof_proves"] == {"device/k21": 2},
+                  f"th-proof proved {rec['th_proof_proves']}")
+            check(all(rec["th_proof_launches"].get(k, 0) > 0
+                      for k in ("mont_mul", "add_mod", "sub_mod"))
+                  and rec["stage_matmul_launches"] > 0,
+                  f"th-proof launched {rec['th_proof_launches']}")
+
+            pubs = ThPublicInputs.from_bytes(
+                files.th_public_inputs().read_bytes())
+            client = Client(_load_config(files), SCORES_MNEMONICS[0],
+                            batched_ingest=False)
+            host_check = client.verify_threshold(
+                _load_attestations(files),
+                bytes.fromhex(addrs[TH_PEER][2:]), TH_THRESHOLD)
+            rec["threshold_check"] = bool(pubs.threshold_check)
+            check(bool(host_check)
+                  and rec["threshold_check"] == bool(host_check),
+                  f"threshold_check {pubs.threshold_check} against the "
+                  f"host's {host_check}")
+            check(len(pubs.agg_instances) == 16,
+                  f"{len(pubs.agg_instances)} accumulator limbs")
+
+            t0 = time.perf_counter()
+            rc, out, err = _cli(["--assets", d, "th-verify"])
+            rec["th_verify_s"] = time.perf_counter() - t0
+            check(rc == 0 and "Threshold proof: VALID" in out,
+                  f"th-verify: rc {rc} {out[-200:]} {err[-300:]}")
+            proof = bytearray(files.th_proof().read_bytes())
+            proof[len(proof) // 2] ^= 1
+            files.th_proof().write_bytes(bytes(proof))
+            rc, out, err = _cli(["--assets", d, "th-verify"])
+            check(rc == 1 and "Threshold proof: INVALID" in out,
+                  f"th-verify on a flipped byte: rc {rc} {out[-200:]}")
+            rec["proof_bytes"] = len(proof)
+        finally:
+            trace.sync_spans(False)
+            if saved is None:
+                os.environ.pop("PTPU_TH_CACHE_DIR", None)
+            else:
+                os.environ["PTPU_TH_CACHE_DIR"] = saved
+            pf._DEVICE_PROVERS.clear()
+            zk._INNER_ET_PK_CACHE.clear()
+            del zk._PK_PARSE_CACHE[:]
+            torch.cuda.empty_cache()
+    rec["wall_s"] = time.perf_counter() - t_phase
+    return rec
+
+
 def _field_record(name: str, launches: int, err: int, times: dict) -> dict:
     t = times[(name, 262_144)]
     replaces = {"mont_mul": "protocol_tpu/ops/pallas_kernels.py:32",
@@ -2921,6 +3156,8 @@ def main() -> int:
         scores_launches = phase_scores(device)
         serve_launches = phase_serve(device)
         prove = phase_prove(device)
+        threshold = phase_threshold(device)
+        emit("threshold", **threshold)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2950,6 +3187,7 @@ def main() -> int:
                    "scores": scores_launches[k],
                    "serve": serve_launches[k],
                    "prove": prove["launches"][k],
+                   "threshold": threshold["launches"][k],
                    **({"field_converge": converge_launches}
                       if k == "mont_mul" else {})})
           for k in ("mont_mul", "add_mod", "sub_mod")]}), flush=True)

@@ -1,5 +1,5 @@
-"""The port's CLI: the reference's score verbs, ``scenario``,
-``sparse-scores`` and ``profile`` on torch.
+"""The port's CLI: the reference's score, proof and service verbs,
+``scenario``, ``sparse-scores`` and ``profile`` on torch.
 
 - ``attest``, ``attestations``, ``deploy``, ``show``, ``update`` and
   ``bandada`` are host verbs, copied from the reference CLI
@@ -34,6 +34,19 @@
   ``kzg-params``, ``et-proving-key`` and ``et-verify`` are host work
   in both packages and take no card. The artifacts are the reference
   package's, byte for byte, both ways.
+- ``et-verifier`` writes the deployable Yul verifier of the EigenTrust
+  proof (``et-verifier.yul``); ``--check`` replays the written proof in
+  the in-repo Yul EVM and prints its gas, ``--rpc URL`` deploys it to a
+  JSON-RPC node (the devnet: ``client.mocknode``) and verifies on-chain.
+  Host work, no card.
+- ``th-proving-key``, ``th-proof --peer --threshold`` and ``th-verify``
+  are the Threshold verbs at ``TH_PARAMS_K`` = 21, the reference's.
+  ``th-proving-key`` proves a dummy inner EigenTrust snark and
+  ``th-proof`` proves the inner snark and the Threshold circuit that
+  aggregates it: both take ``--device`` as ``et-proof`` does and, with
+  no card and no ``--device cpu``, exit 1 naming the flag.
+  ``th-verify`` (the PLONK verify plus the deferred KZG decide) is host
+  work.
 
 - ``serve`` runs the trust-scores daemon (``service``): the reference's
   flags plus ``--device``; without a card and without ``--device cpu``
@@ -43,9 +56,8 @@
 - ``store inspect|compact`` and ``obs`` are the reference's verbs; the
   store's files and the trace streams are the same in both packages.
 
-``et-verifier``, the Threshold verbs (``th-*``) and ``prove-worker``
-wait for ROADMAP A6b, and ``fleet`` for the follower (A4); argparse
-rejects them as unknown verbs.
+``prove-worker`` waits for ROADMAP A6b, and ``fleet`` for the follower
+(A4); argparse rejects them as unknown verbs.
 """
 
 from __future__ import annotations
@@ -73,6 +85,7 @@ from .fs import EigenFile, assets_dir, load_mnemonic
 
 _DEVICE_HELP = "torch device (default: cuda; 'cpu' to run on the CPU)"
 ET_PARAMS_K = 21
+TH_PARAMS_K = 21
 
 
 class CliError(Exception):
@@ -145,6 +158,36 @@ def build_parser() -> argparse.ArgumentParser:
                    help="auto reads et-proof.meta.json (falls back to "
                         "poseidon) so a keccak proof can't be replayed "
                         "under the wrong hash by default")
+    p = sub.add_parser(
+        "et-verifier",
+        help="emit the deployable Yul/EVM verifier (et-verifier.yul)")
+    _et_shape_args(p)
+    p.add_argument("--transcript", choices=["auto", "poseidon", "keccak"],
+                   default="auto",
+                   help="auto follows et-proof.meta.json, else keccak "
+                        "(the on-chain-cheap variant)")
+    p.add_argument("--check", action="store_true",
+                   help="replay the written et-proof against the "
+                        "generated verifier in the in-repo EVM and "
+                        "print the gas")
+    p.add_argument("--rpc", metavar="URL",
+                   help="deploy the verifier to this JSON-RPC node and "
+                        "verify the written et-proof ON-CHAIN via "
+                        "eth_call (devnet: client.mocknode)")
+
+    p = sub.add_parser("th-proof", help="generate the Threshold proof")
+    p.add_argument("--peer", required=True, help="peer address (0x..)")
+    p.add_argument("--threshold", type=int, required=True)
+    p.add_argument("--device", default=None,
+                   help=_DEVICE_HELP + "; rounds 3-4 of both proves run "
+                        "there (cpu: the host prover)")
+    p = sub.add_parser("th-proving-key",
+                       help="generate the Threshold proving key")
+    p.add_argument("--device", default=None,
+                   help=_DEVICE_HELP + "; rounds 3-4 of the dummy inner "
+                        "EigenTrust prove run there (cpu: the host "
+                        "prover)")
+    sub.add_parser("th-verify", help="verify the Threshold proof")
 
     p = sub.add_parser("kzg-params", help="generate KZG params")
     p.add_argument("--k", type=int, required=True,
@@ -753,6 +796,103 @@ def handle_et_verify(args, files, config):
     return 0 if ok else 1
 
 
+def handle_et_verifier(args, files, config):
+    """Emit the deployable Yul verifier; --check replays the written
+    proof artifacts through the in-repo EVM (yellow-paper gas) — the
+    full on-chain flow, drivable end-to-end with shipped tools."""
+    from ..zk import api as zk
+
+    shape, params_k = _et_shape(args)
+    transcript = _resolve_transcript(args, files, "keccak")
+    params = files.read(files.kzg_params(params_k))
+    pk = files.read(files.et_proving_key())
+    code = zk.gen_et_evm_verifier(params, pk, transcript=transcript)
+    files.et_verifier().write_text(code)
+    print(f"wrote {files.et_verifier()}")
+    if getattr(args, "rpc", None):
+        # deploy to the node and verify ON-CHAIN over JSON-RPC: the
+        # devnet executes the Yul through its EVM (mocknode), so this
+        # is the reference's Anvil loop, not a local library replay
+        from ..client.chain import VerifierContract
+        from ..client.eth import ecdsa_keypairs_from_mnemonic
+
+        proof = files.read(files.et_proof())
+        pub_inputs = files.read(files.et_public_inputs())
+        calldata = zk.et_evm_calldata(pub_inputs, proof, shape=shape)
+        kp = ecdsa_keypairs_from_mnemonic(load_mnemonic(), 1)[0]
+        contract = VerifierContract.deploy_signed(args.rpc, kp, code)
+        ok = contract.verify(calldata)
+        gas = contract.estimate_gas(calldata) if ok else 0
+        print(f"on-chain verify at 0x{contract.address.hex()}: "
+              f"{'VALID' if ok else 'INVALID'} ({gas} gas incl. tx, "
+              f"{transcript} transcript)")
+        return 0 if ok else 1
+    if args.check:
+        from ..zk.yul import VMRevert, YulVM
+
+        proof = files.read(files.et_proof())
+        pub_inputs = files.read(files.et_public_inputs())
+        calldata = zk.et_evm_calldata(pub_inputs, proof, shape=shape)
+        try:
+            out, gas = YulVM(code).run(calldata)
+            ok = int.from_bytes(out, "big") == 1
+        except VMRevert:
+            ok, gas = False, 0
+        print(f"EVM replay: {'VALID' if ok else 'INVALID'} "
+              f"({gas} gas, {transcript} transcript)")
+        return 0 if ok else 1
+
+
+def handle_th_pk(args, files, config):
+    """The reference's verb, with the dummy inner EigenTrust prove's
+    rounds 3–4 on ``--device`` (settled first: a box without a card
+    fails before any work)."""
+    import os
+
+    from ..zk import api as zk
+
+    device = cli_device(args.device)
+    # persist the dummy inner-ET snark next to the other artifacts so a
+    # re-run of th-pk (or a th-proof after it) skips the duplicate
+    # inner keygen/prove (zk/api.py inner-ET caches)
+    os.environ.setdefault("PTPU_TH_CACHE_DIR", str(files.assets))
+    params = files.read(files.kzg_params(TH_PARAMS_K))
+    pk = zk.generate_th_pk(params, device=device)
+    files.th_proving_key().write_bytes(pk)
+    print(f"wrote {files.th_proving_key()}")
+
+
+def handle_th_proof(args, files, config):
+    """The reference's verb, with both proves (the inner EigenTrust
+    snark and the Threshold circuit) on ``--device``, settled first."""
+    from ..zk import api as zk
+
+    device = cli_device(args.device)
+    client = _make_client(files, config, device=device)
+    atts = _load_attestations(files)
+    setup = client.th_circuit_setup(
+        atts, _parse_address(args.peer), args.threshold
+    )
+    params = files.read(files.kzg_params(TH_PARAMS_K))
+    pk = files.read(files.th_proving_key())
+    proof = zk.generate_th_proof(params, pk, setup, device=device)
+    files.th_proof().write_bytes(proof)
+    files.th_public_inputs().write_bytes(setup.pub_inputs.to_bytes())
+    print(f"wrote {files.th_proof()} and {files.th_public_inputs()}")
+
+
+def handle_th_verify(args, files, config):
+    from ..zk import api as zk
+
+    params = files.read(files.kzg_params(TH_PARAMS_K))
+    pk = files.read(files.th_proving_key())
+    proof = files.read(files.th_proof())
+    pub_inputs = files.read(files.th_public_inputs())
+    ok = zk.verify_th(params, pk, pub_inputs, proof)
+    print("Threshold proof: VALID" if ok else "Threshold proof: INVALID")
+    return 0 if ok else 1
+
+
 def handle_serve(args, files, config):
     """Boot the long-running service (``service``) against the
     configured chain and block until SIGTERM/SIGINT drains it. The
@@ -1108,6 +1248,7 @@ HANDLERS = {
     "deploy": handle_deploy,
     "et-proof": handle_et_proof,
     "et-proving-key": handle_et_pk,
+    "et-verifier": handle_et_verifier,
     "et-verify": handle_et_verify,
     "kzg-params": handle_kzg_params,
     "local-scores": lambda a, f, c: handle_scores(a, f, c, local=True),
@@ -1119,6 +1260,9 @@ HANDLERS = {
     "show": handle_show,
     "sparse-scores": handle_sparse_scores,
     "store": handle_store,
+    "th-proof": handle_th_proof,
+    "th-proving-key": handle_th_pk,
+    "th-verify": handle_th_verify,
     "update": handle_update,
 }
 

@@ -31,13 +31,13 @@ was modeled):
   any OTHER non-Yul creation data still registers a modeled
   ``LocalChain`` (documented fallback for protocol-level tests).
 - a creation transaction whose data is Yul source (the
-  ``object "PlonkVerifier"`` artifact of the reference's zk stack)
-  registers a verifier contract. Its calls need that stack's Yul EVM,
-  which comes to the port with the EVM verifier (ROADMAP A6b): until then its
-  ``eth_call``/``eth_estimateGas`` answer an RPC error that says so.
+  ``object "PlonkVerifier"`` artifact from ``zk/evm.py``) registers a
+  contract whose ``eth_call``/``eth_estimateGas`` run the code through
+  the in-repo Yul EVM (``zk/yul.py``, yellow-paper gas schedule) — the
+  proof artifact is verified *on-chain over JSON-RPC*, not by a
+  library call (``eigentrust-zk/src/verifier/mod.rs:148-168``).
 
-The port's copy of ``protocol_tpu/client/mocknode.py``; everything but
-the verifier contract is the reference's.
+The port's copy of ``protocol_tpu/client/mocknode.py``.
 """
 
 from __future__ import annotations
@@ -59,23 +59,25 @@ from .chain import (
 from .eth import address_from_public_key, rlp_encode
 
 YUL_CREATION_MARKER = b'object "PlonkVerifier"'
-_NO_YUL_VM = ("verifier contracts run in the zk stack's Yul EVM, which the "
-              "torch port does not have yet")
 
 
 class YulContract:
-    """A deployed generated verifier. Its calls need the zk stack's Yul
-    EVM, which the port does not have yet: they raise, and the RPC
-    surface answers an error."""
+    """A deployed generated verifier: calls execute in the in-repo EVM."""
 
     def __init__(self, source: str):
         self.source = source
 
     def call(self, calldata: bytes) -> bytes:
-        raise ValueError(_NO_YUL_VM)
+        from ..zk.yul import YulVM  # VMRevert propagates to the RPC error
+
+        out, _gas = YulVM(self.source).run(calldata)
+        return out
 
     def estimate_gas(self, calldata: bytes) -> int:
-        raise ValueError(_NO_YUL_VM)
+        from ..zk.yul import YulVM
+
+        _out, gas = YulVM(self.source).run_tx(calldata)
+        return gas
 
 
 def _rlp_decode(data: bytes):
@@ -259,7 +261,12 @@ class MockNode:
                 return "0x"
             data = bytes.fromhex(call["data"].removeprefix("0x"))
             if isinstance(chain, YulContract):
-                return "0x" + chain.call(data).hex()
+                from ..zk.yul import VMRevert
+
+                try:
+                    return "0x" + chain.call(data).hex()
+                except VMRevert as e:
+                    raise ValueError(f"execution reverted: {e}") from e
             if isinstance(chain, ExecutedChain):
                 from .evm import EvmRevert
 
@@ -287,7 +294,12 @@ class MockNode:
             chain = self.contracts.get(addr)
             data = bytes.fromhex(call.get("data", "0x").removeprefix("0x"))
             if isinstance(chain, YulContract):
-                return hex(chain.estimate_gas(data))
+                from ..zk.yul import VMRevert
+
+                try:
+                    return hex(chain.estimate_gas(data))
+                except VMRevert as e:
+                    raise ValueError(f"execution reverted: {e}") from e
             return hex(100_000)
         raise ValueError(f"unsupported method {method}")
 

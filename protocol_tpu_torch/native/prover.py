@@ -184,16 +184,91 @@ def _apply_msm_tuning_locked() -> int | None:
     return applied
 
 
+# --- MSMs over row ranges on all cores -------------------------------------
+# An MSM is a sum over rows, so Σ_i s_i·B_i splits into contiguous row
+# ranges whose partial sums add up to the same group element: each range
+# runs the single-core Pippenger kernel on its own thread (the ctypes
+# call releases the GIL) and the few partial points are added on the
+# host. The affine result, and so every commitment byte, is the one the
+# unsplit call gives. One range a core this process may run on, none
+# below MSM_SPLIT_MIN_ROWS rows, so small MSMs stay on one core.
+
+MSM_SPLIT_MIN_ROWS = 1 << 16
+_POOL = None
+_POOL_LOCK = threading.Lock()
+
+
+def msm_threads() -> int:
+    try:
+        return len(os.sched_getaffinity(0))
+    except AttributeError:
+        return os.cpu_count() or 1
+
+
+def _row_ranges(n: int) -> list:
+    parts = min(msm_threads(), n // MSM_SPLIT_MIN_ROWS)
+    if parts <= 1:
+        return [(0, n)]
+    return [(n * i // parts, n * (i + 1) // parts) for i in range(parts)]
+
+
+def _map_ranges(fn, n: int) -> list:
+    """``fn(a, b)`` over ``_row_ranges(n)``, on the pool when split."""
+    ranges = _row_ranges(n)
+    if len(ranges) == 1:
+        return [fn(*ranges[0])]
+    global _POOL
+    with _POOL_LOCK:
+        if _POOL is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            _POOL = ThreadPoolExecutor(max_workers=msm_threads(),
+                                       thread_name_prefix="pn-msm")
+    return [f.result() for f in [_POOL.submit(fn, a, b) for a, b in ranges]]
+
+
+def _affine_add(p1, p2, modulus: int):
+    """Affine sum on y² = x³ + b over GF(modulus); None is the identity."""
+    if p1 is None:
+        return p2
+    if p2 is None:
+        return p1
+    (x1, y1), (x2, y2) = p1, p2
+    if x1 == x2:
+        if (y1 + y2) % modulus == 0:
+            return None
+        lam = 3 * x1 * x1 * pow(2 * y1, -1, modulus) % modulus
+    else:
+        lam = (y2 - y1) * pow(x2 - x1, -1, modulus) % modulus
+    x3 = (lam * lam - x1 - x2) % modulus
+    return (x3, (lam * (x1 - x3) - y1) % modulus)
+
+
+def _sum_points(parts: list, modulus: int):
+    total = None
+    for pt in parts:
+        total = _affine_add(total, pt, modulus)
+    return total
+
+
 def g1_msm(base_modulus: int, bases: np.ndarray, scalars: np.ndarray):
     """Pippenger MSM. Point arithmetic runs over the curve's BASE field
     (``base_modulus`` — Fq for BN254 G1); scalars are plain 256-bit
     integers. bases: (n, 8) affine standard form (zeros = identity);
-    scalars: (n, 4). Returns an affine (x, y) tuple or None."""
+    scalars: (n, 4). Returns an affine (x, y) tuple or None. Large MSMs
+    run over row ranges on all cores (see ``_row_ranges``)."""
     lib = _load()
     if lib is None:
         raise RuntimeError("native library unavailable")
     bases = np.ascontiguousarray(bases)
     scalars = np.ascontiguousarray(scalars)
+    parts = _map_ranges(lambda a, b: _g1_msm_one(
+        lib, base_modulus, bases[a:b], scalars[a:b]), len(bases))
+    return _sum_points(parts, base_modulus)
+
+
+def _g1_msm_one(lib, base_modulus: int, bases: np.ndarray,
+                scalars: np.ndarray):
     out = np.empty(8, dtype="<u8")
     lib.g1_msm(_ptr(_scalar(base_modulus)), _ptr(bases), _ptr(scalars),
                len(bases), _ptr(out))
@@ -215,7 +290,8 @@ def g1_msm_multi(base_modulus: int, bases: np.ndarray,
     standard form (zeros = identity); scalars: (K, n, 4); ``flips``
     ((K, n) uint8, optional) negates base i's y for column k only —
     the scalar-balancing hook. Returns K affine points (None =
-    identity)."""
+    identity). Large MSMs run over row ranges on all cores (see
+    ``_row_ranges``)."""
     lib = _load()
     if lib is None:
         raise RuntimeError("native library unavailable")
@@ -228,11 +304,23 @@ def g1_msm_multi(base_modulus: int, bases: np.ndarray,
         raise ValueError("scalar columns do not match the base count")
     if kcols > 64:
         raise ValueError("g1_msm_multi is capped at 64 columns per call")
-    fptr = None
     if flips is not None:
         flips = np.ascontiguousarray(flips, dtype=np.uint8)
         if flips.shape != (kcols, n):
             raise ValueError("flips must be (K, n)")
+    parts = _map_ranges(lambda a, b: _g1_msm_multi_one(
+        lib, base_modulus, bases[a:b],
+        np.ascontiguousarray(scalars[:, a:b]),
+        None if flips is None else np.ascontiguousarray(flips[:, a:b])), n)
+    return [_sum_points([p[k] for p in parts], base_modulus)
+            for k in range(kcols)]
+
+
+def _g1_msm_multi_one(lib, base_modulus: int, bases: np.ndarray,
+                      scalars: np.ndarray, flips) -> list:
+    kcols, n = scalars.shape[0], scalars.shape[1]
+    fptr = None
+    if flips is not None:
         fptr = flips.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
     out = np.empty((kcols, 8), dtype="<u8")
     lib.g1_msm_multi(_ptr(_scalar(base_modulus)), _ptr(bases),

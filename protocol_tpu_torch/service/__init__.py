@@ -20,9 +20,8 @@ are the port's:
   (``incremental``).
 - :class:`ProofWorkerPool` (``pool.py``) — the bounded proof pool with
   affinity scheduling and tiered shedding, one worker per CUDA device;
-  the default registry mints eigentrust proofs (rounds 3–4 on the
-  worker's card) and refuses threshold ones until ROADMAP A6b
-  (``provers.py``).
+  the default registry mints eigentrust and threshold proofs (rounds
+  3–4 of every prove on the worker's card; ``provers.py``).
 - ``http_api.py`` — GET /scores, /score/<addr>, /status, /metrics,
   /healthz, the replication and bundle routes, POST /proofs.
 - :class:`TrustService` (``daemon.py``) — the supervisor: threads,

@@ -269,9 +269,9 @@ class TrustService:
                     "config_error",
                     "need an EigenFile assets layout (files=) to build "
                     "the default provers, or pass provers= explicitly")
-            # the default registry: eigentrust proofs and the capture
-            # window; threshold jobs fail until ROADMAP A6b. Affinity
-            # stays kind-keyed (the pool's default)
+            # the default registry: eigentrust and threshold proofs and
+            # the capture window. Affinity stays kind-keyed (the pool's
+            # default)
             provers = make_provers(self, files,
                                    shape_name=config.proof_shape,
                                    transcript=config.transcript)

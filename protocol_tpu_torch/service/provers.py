@@ -7,8 +7,9 @@ card (its ``DeviceProver``), the rest on the host. Artifact BYTES are
 loaded once (``ArtifactCache``) and the same objects go to ``zk.api`` on
 every job: its parse cache and the DeviceProver caches behind it key on
 byte-object identity, so a second job is a warm prove. The
-``threshold`` kind fails its job with an ``EigenError`` naming ROADMAP
-A6b (the Threshold circuit is not ported yet); ``profile`` is the
+``threshold`` kind mints the Threshold proof through
+``zk.api.generate_th_proof``, both of its proves (the inner EigenTrust
+snark and the Threshold circuit) on the job's device; ``profile`` is the
 capture window. Injected registries work as in the reference. The
 per-worker environment gives each worker thread a private DeviceProver
 cache pinned to its own CUDA device (``prover_fast.worker_isolation``).
@@ -28,8 +29,8 @@ from ..utils.errors import EigenError
 # the byte-budget ceiling. Unknown (test-injected) kinds default to 0.
 PROOF_PRIORITIES = {"profile": 0, "threshold": 1, "eigentrust": 2}
 
-# what the threshold kind, sharded proves (the pool's worker lending)
-# and the proving fabric need and the port does not have yet
+# what sharded proves (the pool's worker lending) and the proving
+# fabric need and the port does not have yet
 UNPORTED = ("the rest of the prover stack, which is not ported yet "
             "(ROADMAP A6b)")
 
@@ -55,13 +56,14 @@ def make_worker_env(_service=None):
 
 
 def _shape_params_k(shape_name: str):
-    """(CircuitShape, et_params_k) for a served shape name."""
-    from ..cli.main import ET_PARAMS_K
+    """(CircuitShape, et_params_k, th_params_k) for a served shape
+    name."""
+    from ..cli.main import ET_PARAMS_K, TH_PARAMS_K
     from ..zk import api as zk
 
     if shape_name == "tiny":
-        return zk.TINY_SHAPE, 20
-    return zk.DEFAULT_SHAPE, ET_PARAMS_K
+        return zk.TINY_SHAPE, 20, TH_PARAMS_K
+    return zk.DEFAULT_SHAPE, ET_PARAMS_K, TH_PARAMS_K
 
 
 def _job_device(service):
@@ -96,8 +98,8 @@ class ArtifactCache:
                     raise EigenError(
                         "file_io_error",
                         f"missing proving artifact {path} — generate it "
-                        "with the kzg-params / et-proving-key verbs "
-                        "first") from e
+                        "with the kzg-params / et-proving-key / "
+                        "th-proving-key verbs first") from e
                 self._cache[key] = data
             return data
 
@@ -157,11 +159,10 @@ def make_provers(service, files, shape_name: str = "default",
     """The default registry for :class:`pool.ProofWorkerPool`: the
     reference's three kinds. ``service`` supplies the live attestation
     set and the Client (domain + circuit hyperparameters); ``files`` is
-    the ``cli.fs.EigenFile`` assets layout the batch verbs populate.
-    ``threshold`` jobs fail with an ``EigenError`` naming ROADMAP A6b."""
+    the ``cli.fs.EigenFile`` assets layout the batch verbs populate."""
     from ..zk import api as zk
 
-    shape, params_k = _shape_params_k(shape_name)
+    shape, params_k, th_params_k = _shape_params_k(shape_name)
     cache = ArtifactCache()
 
     def eigentrust(params: dict) -> dict:
@@ -180,7 +181,28 @@ def make_provers(service, files, shape_name: str = "default",
         }
 
     def threshold(params: dict) -> dict:
-        refuse_unported("a threshold proof job")
+        try:
+            peer = bytes.fromhex(
+                str(params["peer"]).removeprefix("0x"))
+            threshold_v = int(params["threshold"])
+        except (KeyError, ValueError) as e:
+            raise EigenError(
+                "validation_error",
+                "threshold jobs need {'peer': '0x…20 bytes', "
+                "'threshold': int}") from e
+        if len(peer) != 20:
+            raise EigenError("validation_error", "peer must be 20 bytes")
+        atts = service.attestation_snapshot()
+        setup = service.client.th_circuit_setup(atts, peer, threshold_v)
+        proof = zk.generate_th_proof(
+            cache.read(files.kzg_params(th_params_k)),
+            cache.read(files.th_proving_key()),
+            setup, device=_job_device(service))
+        return {
+            "proof": proof.hex(),
+            "public_inputs": setup.pub_inputs.to_bytes().hex(),
+            "threshold_check": bool(setup.pub_inputs.threshold_check),
+        }
 
     return {"eigentrust": eigentrust, "threshold": threshold,
             "profile": make_profile_prover(files.assets)}

@@ -1,12 +1,12 @@
-"""ZK layer of the port: constraint system, gadgets, the EigenTrust
-circuit and the KZG/PLONK proving stack, with rounds 3–4 of the prover
+"""ZK layer of the port: constraint system, gadgets, the EigenTrust and
+Threshold circuits and the KZG/PLONK proving stack, with rounds 3–4 of the prover
 on the card (reference: the ``eigentrust-zk`` crate's circuit side; the
 counterpart of ``protocol_tpu/zk``).
 
 Modules
 -------
 - ``api``: stable byte-artifact facade for the CLI/Client (params,
-  proving keys, EigenTrust proofs, verification).
+  proving keys, ET/Threshold proofs, verification, the EVM verifier).
 - ``plonk`` / ``prover_fast``: the proving system (pure Python twin +
   native-kernel prover producing identical transcripts).
 - ``prover_tpu``: the device round-3/4 engine of ``prove_fast_tpu`` on
@@ -18,10 +18,13 @@ Modules
   backends.
 - ``gadgets`` / ``poseidon_chip`` / ``integer_chip`` / ``ecc_chip`` /
   ``ecdsa_chip``: the chip layer.
-- ``eigentrust_circuit``: the EigenTrust product circuit.
-- ``transcript``: Fiat–Shamir.
+- ``eigentrust_circuit`` / ``threshold_circuit``: the two product
+  circuits.
+- ``transcript`` / ``aggregator`` / ``loader_chip``: Fiat–Shamir and
+  recursive aggregation (native + in-circuit).
+- ``evm`` / ``yul``: generated Yul on-chain verifier + the in-repo
+  executor for it.
 
-Not ported yet (ROADMAP A6b): the Threshold circuit and recursive
-aggregation, the Yul/EVM verifier, the cross-process fabric and the
-device MSM.
+Not ported yet (ROADMAP A6b): the cross-process fabric, the device MSM
+and the EdDSA, Rescue and Merkle chips.
 """

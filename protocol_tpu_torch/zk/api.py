@@ -4,29 +4,42 @@ Byte-level artifacts in, byte-level artifacts out — the CLI persists them
 via the EigenFile layout exactly like the reference persists halo2's
 serialized params/keys/proofs (eigentrust-cli/src/fs.rs:50-84).
 
-The port of ``protocol_tpu/zk/api.py``, its EigenTrust half: twin of the
-reference Client's proving surface (eigentrust/src/lib.rs):
-``generate_kzg_params`` :588-604, ``generate_et_pk`` :537-558 (dummy
-circuit for key shape), ``generate_et_proof`` :239-269 and ``verify``
-:304-336. The artifacts are the reference package's, byte for byte: a
-key or proof written by either package verifies under the other.
+The port of ``protocol_tpu/zk/api.py``: twin of the reference Client's
+proving surface (eigentrust/src/lib.rs): ``generate_kzg_params``
+:588-604, ``generate_et_pk`` :537-558 (dummy circuit for key shape),
+``generate_et_proof`` :239-269, ``verify`` :304-336, ``generate_th_pk``
+:561-585 (which, like the reference, must prove a full EigenTrust snark
+first to derive the Threshold key), ``generate_th_proof`` :272-301
+(re-proves the ET circuit with the Poseidon transcript and aggregates it
+in-circuit — the reference's ``Snark::new`` + ``NativeAggregator``
+path, aggregator/native.rs:75-187) and the Yul/EVM verifier
+(``gen_et_evm_verifier``, ``et_evm_calldata``; verifier/mod.rs:116-145).
+The artifacts are the reference package's, byte for byte: a key or
+proof written by either package verifies under the other.
 
-``generate_et_proof`` proves through ``prover_fast.prove_auto``: rounds
-3–4 on the card (``device``, default the card; it raises without one
-unless given the CPU, where the host prover runs) and rounds 1–2 and
-every commitment on the host's C++ prover core. A device prove that
-fails raises; it never falls back to the host.
+Every prove goes through ``prover_fast.prove_auto``: rounds 3–4 on the
+card (``device``, default the card; it raises without one unless given
+the CPU, where the host prover runs) and rounds 1–2 and every
+commitment on the host's C++ prover core. A device prove that fails
+raises; it never falls back to the host. The Threshold flow's two
+proves (the inner EigenTrust snark and the outer Threshold circuit) both
+run on the one device its caller names.
 
-Not ported yet (ROADMAP A6b), each raising an ``EigenError`` that says
-so: the Threshold circuit and its recursive aggregation
-(``generate_th_pk``, ``generate_th_proof``, ``verify_th``) and the
-Yul/EVM verifier (``gen_et_evm_verifier``, ``et_evm_calldata``).
+One deliberate divergence from the reference, kept from the reference
+package: the reference ships two independent SRS files (k=20 and k=21).
+KZG accumulation is only sound when the aggregated snark and the decider
+share one τ, and this stack generates params freshly (no shared
+ceremony), so the Threshold flow proves the inner EigenTrust snark under
+the *Threshold* SRS.
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
 import threading
 from dataclasses import dataclass
+from fractions import Fraction
 
 from ..utils import trace
 from ..utils.errors import EigenError
@@ -341,33 +354,92 @@ def verify_et(params: bytes, pk: bytes, pub_inputs: bytes, proof: bytes,
     return verify(p, _load_vk(pk), flat, proof, transcript=transcript)
 
 
+def gen_et_evm_verifier(params: bytes, pk: bytes,
+                        transcript: str = "keccak") -> str:
+    """Yul source of the EVM verifier for the EigenTrust circuit —
+    the reference's deployable artifact (verifier/mod.rs:116-145).
+    Pairs with proofs from ``generate_et_proof(transcript=...)``."""
+    from .evm import gen_evm_verifier_code
+
+    return gen_evm_verifier_code(_load_params_verifier(params),
+                                 _load_vk(pk), transcript=transcript)
+
+
+def et_evm_calldata(pub_inputs: bytes, proof: bytes,
+                    shape: CircuitShape = DEFAULT_SHAPE) -> bytes:
+    """ABI calldata (instances ‖ proof) for the generated verifier."""
+    from ..client.circuit_io import ETPublicInputs
+    from .evm import encode_calldata
+
+    pubs = ETPublicInputs.from_bytes(pub_inputs, shape.num_neighbours)
+    return encode_calldata([int(x) for x in pubs.to_flat()], proof)
+
+
+# --- inner-ET artifact caches ----------------------------------------------
+# The Threshold flow builds the SAME inner EigenTrust circuit structure
+# twice: generate_th_pk proves a dummy-witness snark to derive the
+# aggregated circuit shape (the reference's th_circuit_setup quirk,
+# lib.rs:561-585), and generate_th_proof proves the real witness. The
+# ET proving key depends only on (SRS, circuit structure) — one keygen
+# serves both phases — and the dummy snark is a deterministic fixture,
+# reusable across runs for a given SRS. SURVEY §7.3 licenses beating
+# the reference's re-keygen-and-re-prove-everything behavior; soundness
+# is unaffected (the dummy snark only fixes the keygen circuit shape,
+# and disk-cached proofs are re-verified before use).
+
+_INNER_ET_PK_CACHE: dict = {}  # (params_sha256, shape) -> proving key obj
+
+
+def _params_digest(params: bytes) -> bytes:
+    return hashlib.sha256(params).digest()
+
+
+def _inner_et_keygen(p, cs, cache_key):
+    pk = _INNER_ET_PK_CACHE.get(cache_key)
+    if pk is None:
+        pk = _keygen(p, cs)
+        _INNER_ET_PK_CACHE.clear()  # ~1 GB at k=21; keep one
+        _INNER_ET_PK_CACHE[cache_key] = pk
+    return pk
+
+
 _PREWARM_THREADS: list = []
 
 
-def _prewarm_device_prover(pk_obj) -> None:
+def _prewarm_device_prover(pk_obj, device=None) -> None:
     """Best-effort: build (or resume) ``pk_obj``'s DeviceProver on a
     daemon thread, overlapping its device init (pk uploads + iNTTs +
     resident ext-table builds) with the caller's GIL-releasing host
-    work. In the reference the Threshold flow's warm path starts this
-    before its outer keygen; the port keeps it for that flow (ROADMAP
-    A6b). ``_prove`` joins any live prewarm before dispatching — the
-    device is never driven concurrently with a prove. A prewarm that
-    fails leaves the prove to init on demand, where a failure raises."""
+    work. ``generate_th_pk``'s warm path starts this before the outer
+    Threshold keygen (a native MSM pass), so the inner ET prover that
+    ``generate_th_proof`` needs next is warm by the time it proves.
+
+    The prover is warmed in the CALLER's DeviceProver cache (a pool
+    worker's own, else the process-wide one) on ``device``, the device
+    the next prove uses; a CPU device, or no card, warms nothing.
+    ``_prove`` joins any live prewarm before dispatching — the device
+    is never driven concurrently with a prove. A prewarm that fails
+    leaves the prove to init on demand, where a failure raises."""
     _join_prewarm()
     import torch
 
-    if not torch.cuda.is_available():
+    if device is None:
+        if not torch.cuda.is_available():
+            return
+        device = torch.device("cuda")
+    device = torch.device(device)
+    if device.type != "cuda":
         return
     if not getattr(pk_obj, "eval_form", False) or pk_obj.k > 21:
         return  # prove_auto would not take the device path anyway
-    import threading
+    from .prover_fast import current_dp_cache
+
+    cache = current_dp_cache()
 
     def _run():
         try:
-            from .prover_fast import _device_prover
-
             with trace.span("th.inner_dp_prewarm"):
-                _device_prover(pk_obj)
+                cache.get(pk_obj, device)
         except Exception:
             pass  # best effort — the prove path inits on demand
 
@@ -387,36 +459,256 @@ def _join_prewarm() -> None:
         t.join()
 
 
-def _not_ported(what: str):
-    raise EigenError(
-        "config_error",
-        f"{what} is not ported to the torch package yet (ROADMAP A6b)")
+def _th_cache_dir() -> str | None:
+    """PTPU_TH_CACHE_DIR opts into persisting the dummy inner-ET snark
+    (pk + proof + public inputs) across processes — the CLI and the
+    measured cycle set it; default is in-memory caching only."""
+    return os.environ.get("PTPU_TH_CACHE_DIR") or None
 
 
-def gen_et_evm_verifier(params: bytes, pk: bytes,
-                        transcript: str = "keccak") -> str:
-    """The Yul/EVM verifier: not ported yet (ROADMAP A6b)."""
-    _not_ported("the Yul/EVM verifier")
+def _dummy_snark_path(digest: bytes, shape: CircuitShape) -> str | None:
+    d = _th_cache_dir()
+    if d is None:
+        return None
+    tag = hashlib.sha256(
+        digest + repr(shape).encode()).hexdigest()[:16]
+    return os.path.join(d, f"th_inner_dummy_{tag}.bin")
 
 
-def et_evm_calldata(pub_inputs: bytes, proof: bytes,
-                    shape: CircuitShape = DEFAULT_SHAPE) -> bytes:
-    """ABI calldata for the EVM verifier: not ported yet (ROADMAP A6b)."""
-    _not_ported("the Yul/EVM verifier")
+def _load_dummy_snark(params: bytes, digest, shape: CircuitShape,
+                      expect=None):
+    """(et_pk_obj, et_pubs, et_proof) from the disk cache, or None.
+    The cached proof is re-verified under these params before use —
+    a stale or corrupt cache falls through to the fresh path.
+
+    ``expect=(addrs, scores, domain)`` (the fixture ``generate_th_pk``
+    computes anyway) cross-checks the cache against the circuit it is
+    supposed to encode: the verify alone is self-referential (proof vs a vk
+    parsed from the SAME cached bytes), so a tampered-but-consistent
+    file would silently swap the inner circuit the Threshold pk is
+    keygen'd for and only surface later as an opaque prove failure.
+    The ET public-input layout is participants ‖ scores ‖ domain ‖
+    op-hash (eigentrust_circuit.py build), so the prefix is natively
+    recomputable without a circuit build."""
+    path = _dummy_snark_path(digest, shape)
+    if path is None or not os.path.exists(path):
+        return None
+    try:
+        import json
+
+        with open(path, "rb") as f:
+            hlen = int.from_bytes(f.read(8), "little")
+            header = json.loads(f.read(hlen).decode())
+            pk_bytes = f.read(header["pk_len"])
+            proof = f.read(header["proof_len"])
+        pubs = [int(v) for v in header["pubs"]]
+        from .plonk import verify
+
+        vk = _load_vk(pk_bytes)
+        if not verify(_load_params_verifier(params), vk, pubs, proof):
+            return None
+        if expect is not None:
+            addrs, scores, domain = expect
+            n = shape.num_neighbours
+            ok = (len(pubs) == 2 * n + 2
+                  and pubs[:n] == [int(a) for a in addrs]
+                  and pubs[n:2 * n] == [int(s) for s in scores]
+                  and pubs[2 * n] == int(domain)
+                  and vk.lookup_bits == shape.lookup_bits
+                  and len(vk.public_rows) == len(pubs))
+            if not ok:
+                return None
+        return _load_pk(pk_bytes), pubs, proof
+    except Exception:
+        return None
 
 
-def generate_th_pk(params: bytes, shape: CircuitShape = DEFAULT_SHAPE) -> bytes:
-    """The Threshold proving key: not ported yet (ROADMAP A6b)."""
-    _not_ported("the Threshold circuit")
+def _store_dummy_snark(digest, shape: CircuitShape, et_pk, pubs,
+                       proof: bytes) -> None:
+    path = _dummy_snark_path(digest, shape)
+    if path is None:
+        return
+    try:
+        import json
+
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        pk_bytes = et_pk.to_bytes()
+        header = json.dumps({"pk_len": len(pk_bytes),
+                             "proof_len": len(proof),
+                             "pubs": [str(v) for v in pubs]}).encode()
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            f.write(len(header).to_bytes(8, "little"))
+            f.write(header)
+            f.write(pk_bytes)
+            f.write(proof)
+        os.replace(tmp, path)
+    except OSError:
+        pass
+
+
+def _build_th_circuit(et_pk, et_pubs, et_proof, target_address: Fr,
+                      threshold: Fr, ratio: Fraction, shape: CircuitShape):
+    from .threshold_circuit import ThresholdCircuit
+
+    circuit = ThresholdCircuit(
+        num_neighbours=shape.num_neighbours,
+        num_limbs=shape.num_limbs,
+        power_of_ten=shape.power_of_ten,
+        initial_score=shape.initial_score,
+        lookup_bits=shape.lookup_bits,
+    )
+    return circuit.build_aggregated(et_pk, et_pubs, et_proof,
+                                    target_address, threshold, ratio)
+
+
+def _aggregate_th_circuit(p, et_chips, et_pubs, target_address: Fr,
+                          threshold: Fr, ratio: Fraction,
+                          shape: CircuitShape, cache_key=None, device=None):
+    """ET snark (keygen + prove under the shared SRS) aggregated inside
+    the Threshold circuit — the reference's th_circuit_setup hot path
+    (lib.rs:469-534: Snark::new re-keygens and re-proves the whole ET
+    circuit, aggregator/native.rs:78-96). The keygen half is served
+    from ``_INNER_ET_PK_CACHE`` when the same (SRS, shape) was keyed
+    before. The inner prove runs on ``device``."""
+    with trace.span("th.inner_et_keygen"):
+        if cache_key is not None:
+            et_pk = _inner_et_keygen(p, et_chips.cs, cache_key)
+        else:
+            et_pk = _keygen(p, et_chips.cs)
+    with trace.span("th.inner_et_prove"):
+        et_proof = _prove(p, et_pk, et_chips.cs, device=device)
+    with trace.span("th.build_th_circuit"):
+        return _build_th_circuit(et_pk, et_pubs, et_proof, target_address,
+                                 threshold, ratio, shape)
+
+
+def generate_th_pk(params: bytes, shape: CircuitShape = DEFAULT_SHAPE,
+                   device=None) -> bytes:
+    """Threshold proving key. Like the reference (lib.rs:561-585) this
+    must build the full aggregated circuit — i.e. prove a dummy
+    EigenTrust snark first — to derive the key. Unlike the reference,
+    the dummy snark (a deterministic fixture) is cached per (SRS,
+    shape): with PTPU_TH_CACHE_DIR set, a warm th-pk pays only the
+    Threshold keygen itself, and the inner ET proving key is shared
+    with the later ``generate_th_proof`` in-process. ``device`` is the
+    torch device of the dummy snark's rounds 3–4 (None: the card, and
+    raises without one before any work; a CPU device proves on the
+    host)."""
+    from ..device import resolve_device
+
+    device = resolve_device(device)
+    p = _load_params(params)
+    digest = _params_digest(params)
+    cache_key = (digest, shape)
+    witness, addrs, scores, ratios = _dummy_et_fixture(shape)
+    cached = _load_dummy_snark(params, digest, shape,
+                               expect=(addrs, scores, witness.domain))
+    if cached is not None:
+        et_pk, et_pubs, et_proof = cached
+        _INNER_ET_PK_CACHE.clear()
+        _INNER_ET_PK_CACHE[cache_key] = et_pk
+        # warm the inner prover's device state under the outer keygen:
+        # the cached-snark path never proves in this phase, so without
+        # this the inner ET prove in generate_th_proof pays the full
+        # device init serially
+        _prewarm_device_prover(et_pk, device)
+        with trace.span("th.build_th_circuit"):
+            chips, _ = _build_th_circuit(et_pk, et_pubs, et_proof, addrs[0],
+                                         Fr(1), ratios[0], shape)
+        with trace.span("th.outer_keygen"):
+            return _keygen(p, chips.cs).to_bytes()
+    with trace.span("th.et_setup_circuit"):
+        et_chips, et_pubs = _build_et_circuit(witness, shape)
+    with trace.span("th.inner_et_keygen"):
+        et_pk = _inner_et_keygen(p, et_chips.cs, cache_key)
+    with trace.span("th.inner_et_prove"):
+        et_proof = _prove(p, et_pk, et_chips.cs, device=device)
+    _store_dummy_snark(digest, shape, et_pk, et_pubs, et_proof)
+    with trace.span("th.build_th_circuit"):
+        chips, _ = _build_th_circuit(et_pk, et_pubs, et_proof, addrs[0],
+                                     Fr(1), ratios[0], shape)
+    with trace.span("th.outer_keygen"):
+        return _keygen(p, chips.cs).to_bytes()
 
 
 def generate_th_proof(params: bytes, pk: bytes, setup,
-                      shape: CircuitShape = DEFAULT_SHAPE) -> bytes:
-    """The Threshold proof: not ported yet (ROADMAP A6b)."""
-    _not_ported("the Threshold circuit")
+                      shape: CircuitShape = DEFAULT_SHAPE,
+                      device=None) -> bytes:
+    """Prove the Threshold circuit for a ThSetup. Fills in
+    ``setup.pub_inputs.agg_instances`` with the accumulator limbs of the
+    freshly-proven inner EigenTrust snark (the caller persists the
+    public inputs *after* this returns, exactly like handle_th_proof
+    writes them post-proof, cli.rs:542-583). Both proves, the inner
+    EigenTrust snark's and the Threshold circuit's, run rounds 3–4 on
+    ``device`` (None: the card, and raises without one before any work;
+    a CPU device proves on the host)."""
+    from ..device import resolve_device
+    if setup.et_setup is None or setup.ratio is None:
+        raise EigenError(
+            "proving_error",
+            "ThSetup lacks the EigenTrust context; build it via "
+            "Client.th_circuit_setup",
+        )
+    device = resolve_device(device)
+    p = _load_params(params)
+    with trace.span("th.et_setup_circuit"):
+        et_chips, et_pubs = _et_setup_circuit(setup.et_setup, shape)
+    chips, pubs = _aggregate_th_circuit(
+        p, et_chips, et_pubs, setup.pub_inputs.address,
+        setup.pub_inputs.threshold, setup.ratio, shape,
+        cache_key=(_params_digest(params), shape), device=device,
+    )
+    expected_head = [
+        int(setup.pub_inputs.address),
+        int(setup.pub_inputs.threshold),
+        1 if setup.pub_inputs.threshold_check else 0,
+    ]
+    if pubs[:3] != expected_head:
+        raise EigenError(
+            "proving_error",
+            "threshold circuit public inputs diverge from the setup",
+        )
+    setup.pub_inputs.agg_instances = [Fr(v) for v in pubs[3:]]
+    with trace.span("th.outer_prove"):
+        return _prove(p, _load_pk(pk), chips.cs, device=device)
+
+
+def _accumulator_from_limbs(limbs: list):
+    """16 Fr limb instances → (lhs, rhs) G1 pair (inverse of
+    ``aggregator.accumulator_limbs``)."""
+    from .bn254 import g1_is_on_curve
+    from .integer_chip import NUM_LIMBS, from_limbs
+
+    if len(limbs) != 4 * NUM_LIMBS:
+        raise EigenError("verification_error",
+                         f"expected {4 * NUM_LIMBS} accumulator limbs, "
+                         f"got {len(limbs)}")
+    coords = [from_limbs(limbs[i * NUM_LIMBS:(i + 1) * NUM_LIMBS])
+              for i in range(4)]
+    lhs = (coords[0], coords[1])
+    rhs = (coords[2], coords[3])
+    for pt in (lhs, rhs):
+        if not g1_is_on_curve(pt):
+            raise EigenError("verification_error",
+                             "accumulator limbs do not encode G1 points")
+    return lhs, rhs
 
 
 def verify_th(params: bytes, pk: bytes, pub_inputs: bytes, proof: bytes,
               shape: CircuitShape = DEFAULT_SHAPE) -> bool:
-    """Threshold verification: not ported yet (ROADMAP A6b)."""
-    _not_ported("the Threshold circuit")
+    """PLONK-verify the Threshold proof, then run the deferred KZG
+    decider over the accumulator limbs it exposes (the one pairing that
+    attests to the aggregated EigenTrust snark, lib.rs:665-673 +
+    aggregator decide)."""
+    from ..client.circuit_io import ThPublicInputs
+    from .kzg import decide
+    from .plonk import verify
+
+    p = _load_params_verifier(params)
+    pubs = ThPublicInputs.from_bytes(pub_inputs)
+    flat = [int(x) for x in pubs.to_flat()]
+    if not verify(p, _load_vk(pk), flat, proof):
+        return False
+    lhs, rhs = _accumulator_from_limbs(pubs.agg_instances)
+    return decide(p, lhs, rhs)

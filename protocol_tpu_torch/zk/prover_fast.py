@@ -1204,12 +1204,15 @@ def _prove_fast_tpu_impl(params, pk, cs, public_inputs, randint,
             tr.absorb_fr(v)
 
     # round 1: wires + lookup multiplicities (commits from evals; the
-    # blinding stream consumption order matches _blind_arr exactly)
-    wire_vals = np.zeros((NUM_WIRES, n, 4), dtype="<u8")
-    for w in range(NUM_WIRES):
-        col = cs.wires[w]
-        if col:
-            wire_vals[w, : len(col)] = native.ints_to_limbs(col)
+    # blinding stream consumption order matches _blind_arr exactly). The
+    # host's limb conversion of the witness is its own stage, as on the
+    # host path: unstaged, it is prove time no stage accounts for
+    with _stage("witness_build", pk.k, "device"):
+        wire_vals = np.zeros((NUM_WIRES, n, 4), dtype="<u8")
+        for w in range(NUM_WIRES):
+            col = cs.wires[w]
+            if col:
+                wire_vals[w, : len(col)] = native.ints_to_limbs(col)
     # eval-form device arrays are transient: intt to coeffs, then drop
     # (ζ-evals run from coeffs, as in the reference)
 
@@ -1279,11 +1282,11 @@ def _prove_fast_tpu_impl(params, pk, cs, public_inputs, randint,
         beta_lk = tr.challenge()
 
     # round 2: grand products on host kernels, commits from evals
-    omegas = np.zeros((n, 4), dtype="<u8")
-    omegas[:, 0] = 1
-    fk.coset_scale(omegas, d.omega)
     with _stage("grand_product", pk.k, "device",
                 span_name="prove_device.r2_grand_products"):
+        omegas = np.zeros((n, 4), dtype="<u8")
+        omegas[:, 0] = 1
+        fk.coset_scale(omegas, d.omega)
         z_vals = fk.perm_grand_product(wire_vals, pk.sigma_eval_limbs,
                                        pk.shifts, omegas, beta, gamma)
         z_coeff_dev = dp.upload_intt(z_vals)
@@ -1341,9 +1344,10 @@ def _prove_fast_tpu_impl(params, pk, cs, public_inputs, randint,
         alpha = tr.challenge()
 
     # round 3 (device): ext chunks → quotient → 4n inverse → chunks
-    ch_planes = dp.challenge_planes(beta, gamma, beta_lk, alpha, pk.shifts)
     with _stage("quotient_chunks", pk.k, "device",
                 span_name="prove_device.r3_quotient"):
+        ch_planes = dp.challenge_planes(beta, gamma, beta_lk, alpha,
+                                        pk.shifts)
         t_chunks_fs = []
         for j in range(ptpu.EXT_COSETS):
             with trace.span("prove_device.r3_chunk", j=j):

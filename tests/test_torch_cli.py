@@ -79,10 +79,16 @@ def test_parser_accepts_the_ported_verbs_and_no_other():
         ("et-proof", ["--shape", "tiny", "--transcript", "keccak",
                       "--device", "cpu"]),
         ("et-verify", ["--shape", "tiny", "--transcript", "auto"]),
+        ("et-verifier", ["--shape", "tiny", "--transcript", "keccak",
+                         "--check"]),
+        ("et-verifier", ["--rpc", "http://127.0.0.1:1"]),
+        ("th-proving-key", ["--device", "cpu"]),
+        ("th-proof", ["--peer", "0x" + "11" * 20, "--threshold", "500",
+                      "--device", "cpu"]),
+        ("th-verify", []),
     ]:
         assert parser.parse_args([verb, *extra]).command == verb
-    for verb in ("et-verifier", "th-verify", "th-proof", "fleet",
-                 "prove-worker"):
+    for verb in ("fleet", "prove-worker"):
         with pytest.raises(SystemExit):
             parser.parse_args([verb])
     with pytest.raises(SystemExit):  # the reference's backend names
@@ -481,3 +487,137 @@ def test_serve_refuses_follow_until_the_follower_is_ported(tmp_path,
     err = capsys.readouterr().err
     assert "--follow" in err and "A4" in err
     assert not (assets / "service-state").exists()
+
+
+def test_threshold_proof_verbs_need_the_card_or_device_cpu(tmp_path,
+                                                           capsys):
+    """``th-proving-key`` and ``th-proof`` prove: with no card and no
+    ``--device cpu`` each exits 1 naming the flag, before it reads an
+    artifact or writes a key. ``th-verify`` is host work: without
+    artifacts it fails on the missing file, not on the device."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    assets = ["--assets", str(tmp_path)]
+    for argv in (["th-proving-key"],
+                 ["th-proof", "--peer", "0x" + "11" * 20, "--threshold",
+                  "500"]):
+        assert port_main([*assets, *argv]) == 1
+        err = capsys.readouterr().err
+        assert "no CUDA device" in err and "--device cpu" in err, argv
+    assert port_main([*assets, "th-verify"]) == 1
+    err = capsys.readouterr().err
+    assert "missing artifact" in err and "CUDA" not in err
+    # with --device cpu th-proving-key gets past the device and stops on
+    # the missing k = 21 SRS
+    assert port_main([*assets, "th-proving-key", "--device", "cpu"]) == 1
+    assert "CUDA" not in capsys.readouterr().err
+    assert list(tmp_path.glob("th-*")) == []
+
+
+@pytest.fixture(scope="module")
+def et_evm_artifacts():
+    """{transcript: {file name: bytes}}: k = 8 artifacts of a small
+    circuit whose publics follow the two-peer EigenTrust layout (the
+    reference's ``TestEvmVerifierVerb._et_shaped_fixture``; the files
+    do not encode k, so the verbs run their real load, codegen and
+    replay path), proved by the port under each transcript."""
+    from protocol_tpu_torch.client.circuit_io import ETPublicInputs
+    from protocol_tpu_torch.utils.fields import Fr
+    from protocol_tpu_torch.zk.api import generate_kzg_params
+    from protocol_tpu_torch.zk.gadgets import Chips
+    from protocol_tpu_torch.zk.kzg import KZGParams
+    from protocol_tpu_torch.zk.plonk import ConstraintSystem, keygen, prove
+
+    addrs, scores = [11, 22], [700, 1300]
+    c = Chips(ConstraintSystem(lookup_bits=4))
+    x, y = c.witness(3), c.witness(4)
+    s = c.add(x, y)
+    c.lincomb([(2, x), (3, y), (1, s), (1, c.mul(x, y))], const=1)
+    c.mul_add(x, y, s)
+    c.range_check(c.witness(9), 4)
+    c.cs.add_row([0, 0, 2, 3, 0, 0], q_mul_cd=1, q_const=-6)
+    for v in addrs + scores + [42, 12345]:
+        c.cs.public_input(v)
+    c.cs.check_satisfied()
+    params_b = generate_kzg_params(8, seed=b"cli-evm")
+    params = KZGParams.from_bytes(params_b)
+    pk = keygen(params, c.cs)
+    pubs = ETPublicInputs(participants=[Fr(a) for a in addrs],
+                          scores=[Fr(v) for v in scores], domain=Fr(42),
+                          opinion_hash=Fr(12345)).to_bytes()
+    return {tr: {"kzg-params-20.bin": params_b,
+                 "et-proving-key.bin": pk.to_bytes(),
+                 "et-proof.bin": prove(params, pk, c.cs, transcript=tr),
+                 "et-public-inputs.bin": pubs}
+            for tr in ("keccak", "poseidon")}
+
+
+def _write_artifacts(tmp_path, arts, flip: int | None = None):
+    for d in ("ref", "port"):
+        (tmp_path / d).mkdir(exist_ok=True)
+        for name, blob in arts.items():
+            if name == "et-proof.bin" and flip is not None:
+                blob = bytearray(blob)
+                blob[flip] ^= 1
+                blob = bytes(blob)
+            (tmp_path / d / name).write_bytes(blob)
+
+
+def _replay_line(out: str) -> str:
+    return next(line for line in out.splitlines()
+                if line.startswith("EVM replay"))
+
+
+@pytest.mark.parametrize("proved,flip,rc", [("keccak", None, 0),
+                                            ("keccak", 40, 1),
+                                            ("poseidon", None, 1)])
+def test_et_verifier_check_matches_the_reference(tmp_path, capsys,
+                                                 et_evm_artifacts, proved,
+                                                 flip, rc):
+    """``et-verifier --check`` in both CLIs on the same artifacts: the
+    same Yul file, the same verdict and gas. VALID on the keccak proof;
+    INVALID on a flipped byte and on a poseidon proof replayed under the
+    keccak verifier."""
+    _write_artifacts(tmp_path, et_evm_artifacts[proved], flip)
+    lines = []
+    for main, d in ((ref_main, "ref"), (port_main, "port")):
+        assert main(["--assets", str(tmp_path / d), "et-verifier",
+                     "--shape", "tiny", "--transcript", "keccak",
+                     "--check"]) == rc
+        lines.append(_replay_line(capsys.readouterr().out))
+    assert lines[0] == lines[1]
+    assert ("INVALID" in lines[1]) is bool(rc) and "gas" in lines[1]
+    same_file(tmp_path, "et-verifier.yul")
+    if rc == 0:
+        assert port_main(["--assets", str(tmp_path / "port"), "et-verify",
+                          "--shape", "tiny", "--transcript", "keccak"]) == 0
+        assert "VALID" in capsys.readouterr().out
+
+
+def test_et_verifier_onchain_rpc_on_the_port_devnet(tmp_path, capsys,
+                                                    monkeypatch,
+                                                    et_evm_artifacts):
+    """``--rpc``: deploy the verifier to the port's ``MockNode`` and
+    verify the written proof on-chain through ``eth_call``; a tampered
+    proof is rejected by the chain."""
+    from protocol_tpu_torch.client.mocknode import MockNode
+
+    monkeypatch.delenv("MNEMONIC", raising=False)
+    _write_artifacts(tmp_path, et_evm_artifacts["keccak"])
+    assets = ["--assets", str(tmp_path / "port")]
+    node = MockNode()
+    url = node.start()
+    try:
+        assert port_main([*assets, "et-verifier", "--shape", "tiny",
+                          "--rpc", url]) == 0
+        out = capsys.readouterr().out
+        assert "on-chain verify" in out and "VALID" in out
+        assert "INVALID" not in out and "keccak transcript" in out
+        proof = bytearray((tmp_path / "port" / "et-proof.bin").read_bytes())
+        proof[100] ^= 1
+        (tmp_path / "port" / "et-proof.bin").write_bytes(bytes(proof))
+        assert port_main([*assets, "et-verifier", "--shape", "tiny",
+                          "--rpc", url]) == 1
+        assert "INVALID" in capsys.readouterr().out
+    finally:
+        node.stop()

@@ -100,7 +100,12 @@ def test_port_imports_neither_jax_nor_reference():
               "protocol_tpu_torch.zk.prover_fast",
               "protocol_tpu_torch.zk.prover_tpu",
               "protocol_tpu_torch.zk.shards",
-              "protocol_tpu_torch.zk.transcript"):
+              "protocol_tpu_torch.zk.transcript",
+              "protocol_tpu_torch.zk.aggregator",
+              "protocol_tpu_torch.zk.loader_chip",
+              "protocol_tpu_torch.zk.threshold_circuit",
+              "protocol_tpu_torch.zk.yul",
+              "protocol_tpu_torch.zk.evm"):
         assert m in mods
 
 

@@ -275,3 +275,33 @@ def test_profile_prove_workload_covers_the_prove(tmp_path, capsys):
     assert rep["meta"]["workload"] == "prove" and rep["coverage"] >= 0.9
     assert {"commit.r1", "quotient", "openings"} <= set(rep["stages"])
     assert "STAGE_COVERAGE" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("parts", [2, 3, 5])
+def test_msm_over_row_ranges_equals_one_range(monkeypatch, parts):
+    """An MSM split over row ranges (one thread each, partial points
+    added on the host) gives the point of the unsplit kernel call, and
+    the reference core's, for one column and for several with flips."""
+    from protocol_tpu_torch.zk.bn254 import BN254_FQ_MODULUS as Q
+    from protocol_tpu_torch.zk.bn254 import G1_GEN, g1_mul
+
+    n = 600
+    rng = random.Random(parts)
+    points = [g1_mul(G1_GEN, rng.randrange(1, P)) for _ in range(40)]
+    bases = port_native.ints_to_limbs(
+        [c for i in range(n) for c in points[i % 40]]).reshape(n, 8)
+    bases[7] = 0  # an identity base
+    cols = np.stack([rand_fr(n, 10 * parts + k)[0] for k in range(3)])
+    cols[2, : n // 2] = 0  # a column whose first ranges sum to nothing
+    flips = np.array([[rng.randrange(2) for _ in range(n)]
+                      for _ in range(3)], dtype=np.uint8)
+    whole = port_native.g1_msm_multi(Q, bases, cols, flips)
+    single = port_native.g1_msm(Q, bases, cols[0])
+    assert whole == ref_native.g1_msm_multi(Q, bases, cols, flips)
+    monkeypatch.setattr(port_native, "MSM_SPLIT_MIN_ROWS", n // parts)
+    monkeypatch.setattr(port_native, "msm_threads", lambda: parts)
+    assert len(port_native._row_ranges(n)) == parts
+    assert port_native.g1_msm_multi(Q, bases, cols, flips) == whole
+    assert port_native.g1_msm(Q, bases, cols[0]) == single
+    assert port_native.g1_msm(Q, bases[:n // parts], cols[0][:n // parts]) \
+        == ref_native.g1_msm(Q, bases[:n // parts], cols[0][:n // parts])

@@ -785,7 +785,7 @@ def test_routed_plan_cost_is_the_sweeps_analytic_row(tmp_path):
 def test_prover_backed_surfaces_name_the_missing_prover(tmp_path,
                                                        monkeypatch):
     """``shard_proves``/``fabric`` are refused before the state dir is
-    touched and ``threshold`` jobs fail, each naming ROADMAP A6b; the
+    touched, each naming ROADMAP A6b; the
     default registry's ``eigentrust`` kind resolves to the port's
     ``zk.api.generate_et_proof`` (stubbed here: no prove) with the
     cached artifact bytes, the served shape and the job's device."""
@@ -831,5 +831,62 @@ def test_prover_backed_surfaces_name_the_missing_prover(tmp_path,
     assert shape == port_api.TINY_SHAPE and device == torch.device("cpu")
     provers["eigentrust"]({})
     assert calls[1][0] is params and calls[1][4] == "keccak"  # cached
-    with pytest.raises(EigenError, match="not ported yet.*A6b"):
-        provers["threshold"]({})
+
+def test_threshold_jobs_prove_through_the_port_api(tmp_path, monkeypatch):
+    """The ``threshold`` kind (the reference's): ``peer`` and
+    ``threshold`` are validated, then the port's
+    ``zk.api.generate_th_proof`` gets the setup of the live attestation
+    snapshot, the cached k = 21 SRS and Threshold key bytes and the
+    job's device (stubbed here: the k = 21 prove runs on the card in
+    ``chip_smoke.py``)."""
+    from types import SimpleNamespace
+
+    from protocol_tpu_torch.cli.fs import EigenFile
+    from protocol_tpu_torch.service.provers import make_provers
+    from protocol_tpu_torch.zk import api as port_api
+
+    files = EigenFile(tmp_path)
+    files.kzg_params(21).write_bytes(b"srs21")
+    files.th_proving_key().write_bytes(b"thpk")
+    peer = b"\x07" * 20
+    setups = []
+
+    def th_circuit_setup(atts, participant, threshold):
+        setup = SimpleNamespace(pub_inputs=SimpleNamespace(
+            to_bytes=lambda: b"thpubs", threshold_check=threshold <= 900))
+        setups.append((atts, participant, threshold, setup))
+        return setup
+
+    service = SimpleNamespace(
+        attestation_snapshot=lambda: ["att"],
+        client=SimpleNamespace(device=torch.device("cpu"),
+                               th_circuit_setup=th_circuit_setup))
+    calls = []
+
+    def fake_th_proof(params, pk, setup, device):
+        calls.append((params, pk, setup, device))
+        return b"thproof"
+
+    monkeypatch.setattr(port_api, "generate_th_proof", fake_th_proof)
+    provers = make_provers(service, files, shape_name="tiny")
+    for bad in ({}, {"peer": "0x07"}, {"peer": "0x" + "07" * 20},
+                {"peer": "zz", "threshold": 5},
+                {"peer": "0x" + "07" * 20, "threshold": "x"},
+                {"peer": "0x" + "07" * 19, "threshold": 5}):
+        with pytest.raises(EigenError) as e:
+            provers["threshold"](bad)
+        assert e.value.kind == "validation_error", bad
+    assert calls == [] and setups == []
+    out = provers["threshold"]({"peer": "0x" + "07" * 20,
+                                "threshold": 500})
+    assert out == {"proof": b"thproof".hex(),
+                   "public_inputs": b"thpubs".hex(),
+                   "threshold_check": True}
+    (atts, participant, threshold, setup), = setups
+    assert (atts, participant, threshold) == (["att"], peer, 500)
+    (params, pk, setup_, device), = calls
+    assert (params, pk, setup_) == (b"srs21", b"thpk", setup)
+    assert device == torch.device("cpu")
+    out = provers["threshold"]({"peer": peer.hex(), "threshold": 1000})
+    assert out["threshold_check"] is False
+    assert calls[1][0] is params and calls[1][1] is pk  # cached bytes

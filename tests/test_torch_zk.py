@@ -132,15 +132,19 @@ def test_proof_verbs_need_the_card_or_device_cpu(tmp_path, capsys):
     assert list(tmp_path.glob("et-proof*")) == []
 
 
-@pytest.mark.parametrize("fn", ["generate_th_pk", "generate_th_proof",
-                                "verify_th", "gen_et_evm_verifier",
-                                "et_evm_calldata"])
-def test_unported_api_names_a6b(fn):
-    args = {"generate_th_pk": (b"",), "generate_th_proof": (b"", b"", None),
-            "verify_th": (b"", b"", b"", b""),
-            "gen_et_evm_verifier": (b"", b""),
-            "et_evm_calldata": (b"", b"")}[fn]
-    with pytest.raises(port_api.EigenError, match="A6b"):
+@pytest.mark.parametrize("fn", ["generate_th_pk", "generate_th_proof"])
+def test_threshold_proves_need_the_card_or_a_cpu_device(fn):
+    """Both Threshold api calls prove: given no device on a box without a
+    card they raise before they parse an artifact (the bytes here are
+    empty), as ``generate_et_proof`` does."""
+    from types import SimpleNamespace
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    setup = SimpleNamespace(et_setup=object(), ratio=1)
+    args = {"generate_th_pk": (b"",),
+            "generate_th_proof": (b"", b"", setup)}[fn]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         getattr(port_api, fn)(*args)
 
 
