@@ -83,7 +83,18 @@ over the daemon's edge set, ``/metrics`` to the exposition lint and
 protocol_tpu_torch.cli serve`` restarts on the same state dir (its
 startup compaction recovers the WAL's signers in batch once more) and
 must serve the same scores, with ``store inspect``'s counts equal to
-its ``/status``.
+its ``/status``. Before the leader's drain, a follower replica runs
+beside it on the card as ``serve --follow`` builds it: it bootstraps
+from the leader's seeded snapshot (the leader snapshots only at its
+drain), catches up on the four shipped waves (one batched recovery on
+the field kernels, the cold routed refresh and the delta engine on
+B1: the launches counted there are the follower's alone), absorbs one
+live wave with the leader, and must serve scores within 1e-3 of a
+float64 gather converge over its own edges and of the leader's, lag 0,
+the leader's ``/bundle`` byte for byte (304 on ``If-None-Match``), a
+503 on ``POST /proofs`` and one full build; ``fleet``, ``slo`` and
+``incident`` run against the pair; then a ``serve --follow`` restart
+on its state dir resumes from its cursor with the same scores.
 
 Last comes the EigenTrust proof (phase ``prove``): the device prover
 of ``zk/prover_tpu.py`` runs every field product on B2 and every sum on
@@ -121,8 +132,30 @@ companions launched), its ``threshold_check`` equal to the host's
 plus the deferred KZG decide on the 16 accumulator limbs) and INVALID
 with one proof byte flipped.
 
-Every phase prints one JSON line; any failed check exits non-zero. The
-last lines are the ``kernels`` record, the card's name and power limit,
+Last, the proving fabric (phase ``fabric``): a daemon with two pool
+workers, ``shard_proves`` and ``fabric`` proves a k = 16 synthetic
+circuit on the card per job while ``prove-worker`` polls its state dir
+as its own process; each dispatch's first unit is published once that
+process holds its lease, and every job after the first runs while a
+held job keeps the other pool worker busy (an idle pool worker lends
+itself units whatever their lease); up to eight jobs until one has a
+unit executed by that process, every job's proof equal to the
+unsharded prove's bytes,
+the fabric series on ``/metrics``, the worker on ``/fleet`` and a
+clean exit on SIGTERM.
+
+The phases that time a kernel (through ``prove``'s NTT, ``DeviceProver``
+and lockstep pieces) run first and alone on the card. Phase
+``threshold``, host-bound for most of its wall, then runs as a process
+of its own (``chip_smoke.py --threshold-child``, its launch counts its
+own) beside the phases from ``scenario`` to ``fabric``, which time no
+kernel; the run joins it last.
+
+Every phase prints one JSON line, with the run's elapsed seconds
+(``t_s``) and a progress line on stderr; any failed check exits
+non-zero. Every wait is cut at SMOKE_DEADLINE_S, so a stalled wait fails
+with its name within the 1,200 s limit, and at DUMP_AFTER_S every
+thread's stack goes to stderr. The last lines are the ``kernels`` record, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. With no CUDA device, or outside
 the repository, it exits non-zero and prints no result. Imports nothing
 of JAX or of ``protocol_tpu``.
@@ -135,6 +168,7 @@ import json
 import os
 import random
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -233,7 +267,25 @@ SERVE_CHECKED = 1000           # seeded peers whose served score is held
 # smoke's bound against its oracle, and its restart phase's
 SERVE_SCORE_RTOL = 1e-3
 SERVE_RESTART_RTOL = 1e-3
-SERVE_TIMEOUT_S = 600.0        # any one wait of the phase
+SERVE_TIMEOUT_S = 300.0        # any one wait of the phase
+# the leader snapshots only at its drain (the seeded snapshot before),
+# so the follower, started after the four waves, bootstraps from the
+# seeded cut and catches up on all 1,024 shipped records; then one live
+# wave of SERVE_SIGNERS * (SERVE_REVISIONS + 1) attestations reaches both
+SERVE_LEADER_SNAPSHOT_EVERY = 1 << 30
+SERVE_LIVE_WAVES = 1
+
+# phase fabric: a daemon with two pool workers lends a running prove's
+# commit units to them and, through <state-dir>/fabric, to an external
+# prove-worker process; each job proves a synthetic circuit at
+# FABRIC_K on the card (the daemon's k = 20 tiny shape is 16 times the
+# rows, PERF.md section 4) from a seeded blinding stream, so every
+# job's bytes equal one unsharded prove's
+FABRIC_K = 16
+FABRIC_SEED = 16
+FABRIC_MAX_JOBS = 8
+FABRIC_JOB_TIMEOUT_S = 120.0   # one job proves in about 5 s on the card
+FABRIC_WORKER = "fw-smoke"
 
 # the proof path (phase prove): the NTT at three sizes (a test-sized
 # domain, the k = 16 prover's, the k = 20 prover's), the DeviceProver's
@@ -258,12 +310,31 @@ TH_THRESHOLD = 500             # under every score of the four-peer ring
 INT8_OPS_PER_S = 1979e12
 
 
+# the whole run must end within 1,200 s: every wait is cut to what is
+# left before this deadline, so a stalled wait fails with its name
+# instead of running into the limit, and at DUMP_AFTER_S every thread's
+# stack goes to stderr (a stall outside a wait shows where it is)
+SMOKE_DEADLINE_S = 1140.0
+DUMP_AFTER_S = 1160.0
+_T0 = time.perf_counter()
+
+
 class SmokeFailure(Exception):
     pass
 
 
+def _left(timeout: float) -> float:
+    """``timeout``, cut to the seconds left before SMOKE_DEADLINE_S."""
+    return max(0.0, min(timeout,
+                        SMOKE_DEADLINE_S - (time.perf_counter() - _T0)))
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line on stdout; ``t_s`` is the run's elapsed wall, and a
+    line on stderr says how far the run got."""
+    t = time.perf_counter() - _T0
+    print(json.dumps({"phase": phase, **fields, "t_s": t}), flush=True)
+    print(f"chip_smoke: {t:.1f} s: {phase}", file=sys.stderr, flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -2038,8 +2109,10 @@ def _series(text: str, name: str, **labels):
 
 def _wait_for(pred, what: str, timeout: float = SERVE_TIMEOUT_S) -> float:
     t0 = time.perf_counter()
+    limit = _left(timeout)
     while not pred():
-        check(time.perf_counter() - t0 < timeout, f"timed out: {what}")
+        check(time.perf_counter() - t0 < limit,
+              f"timed out after {limit:.0f} s: {what}")
         time.sleep(0.02)
     return time.perf_counter() - t0
 
@@ -2076,8 +2149,9 @@ def _serve_seed(state_dir: Path, peers: int, rng) -> tuple:
     return keys, addrs, fsrc, fdst
 
 
-def _serve_churn(keys, addrs, fsrc, fdst, rng, domain: bytes) -> list:
-    """SERVE_WAVES waves of signed attestations: each signer revises
+def _serve_churn(keys, addrs, fsrc, fdst, rng, domain: bytes,
+                 waves: int = SERVE_WAVES) -> list:
+    """``waves`` waves of signed attestations: each signer revises
     SERVE_REVISIONS of its edges in the snapshot and attests one peer it
     has no edge to. Returns per wave ``[(signer id, signed), ...]``."""
     import numpy as np
@@ -2089,8 +2163,8 @@ def _serve_churn(keys, addrs, fsrc, fdst, rng, domain: bytes) -> list:
     )
 
     n = len(addrs)
-    waves = []
-    for _ in range(SERVE_WAVES):
+    out = []
+    for _ in range(waves):
         wave = []
         for i, kp in enumerate(keys):
             lo, hi = np.searchsorted(fsrc, [i, i + 1])
@@ -2106,8 +2180,8 @@ def _serve_churn(keys, addrs, fsrc, fdst, rng, domain: bytes) -> list:
                 sig = kp.sign(int(data.to_scalar().hash()))
                 wave.append((i, SignedAttestationData(
                     data, SignatureData.from_signature(sig))))
-        waves.append(wave)
-    return waves
+        out.append(wave)
+    return out
 
 
 def _save_local_chain(path: Path, chain) -> None:
@@ -2136,18 +2210,314 @@ def _rung_counters(r) -> dict:
             "refreshes": r.refreshes}
 
 
-def _readline(proc, timeout: float) -> str:
-    """One line of a child's stdout, or '' when none comes in time."""
-    import queue
-    import threading
+class _Child:
+    """A process the smoke starts: its stdout and stderr go to files in
+    ``d`` (a pipe that nobody drains fills up and blocks the child), its
+    output unbuffered."""
 
-    q = queue.Queue()
-    threading.Thread(target=lambda: q.put(proc.stdout.readline()),
-                     daemon=True).start()
+    def __init__(self, argv, d, name: str, env: dict):
+        self.out_path = Path(d) / f"{name}.stdout"
+        self.err_path = Path(d) / f"{name}.stderr"
+        with open(self.out_path, "w") as out, open(self.err_path, "w") as err:
+            self.proc = subprocess.Popen(
+                [str(a) for a in argv], stdout=out, stderr=err, cwd=ROOT,
+                env=dict(env, PYTHONUNBUFFERED="1"))
+
+    def first_line(self, timeout: float) -> str:
+        """The child's first line of stdout, or what it printed when it
+        exited or the time ran out."""
+        t0 = time.perf_counter()
+        limit = _left(timeout)
+        while True:
+            text = self.out_path.read_text()
+            if "\n" in text:
+                return text.split("\n", 1)[0]
+            if self.proc.poll() is not None or \
+                    time.perf_counter() - t0 > limit:
+                return text
+            time.sleep(0.05)
+
+    def finish(self, timeout: float, what: str) -> tuple:
+        """Wait for the child's exit: ``(stdout, stderr)``."""
+        try:
+            self.proc.wait(timeout=_left(timeout))
+        except subprocess.TimeoutExpired:
+            raise SmokeFailure(f"timed out: {what}") from None
+        return self.out_path.read_text(), self.err_path.read_text()
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def _http_raw(url: str, path: str, headers=None, data=None,
+              timeout: float = 120.0) -> tuple:
+    """``(status, headers, body)`` of one request; an HTTP error status
+    (304, 503) is returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url + path, data=data,
+                                 headers=headers or {})
     try:
-        return q.get(timeout=timeout)
-    except queue.Empty:
-        return ""
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _score_map(url: str) -> dict:
+    return {r["address"]: r["score"] for r in _http(url, "/scores")["scores"]}
+
+
+def _max_rel(a: dict, b: dict) -> float:
+    """Worst ``|a - b| / max(|b|, 1)`` over ``b``'s keys (``a`` must
+    hold them all)."""
+    return max(abs(a[k] - v) / max(abs(v), 1.0) for k, v in b.items())
+
+
+def _follower_caught_up(fol, svc) -> bool:
+    """The follower holds the leader's committed WAL and published a
+    table of its own latest revision; the leader published its own."""
+    return (fol._cursor == tuple(svc.store.wal.committed_position())
+            and fol.last_backlog == 0
+            and fol.refresher.table.revision == fol.graph.revision
+            and svc.refresher.table.revision == svc.graph.revision)
+
+
+def _serve_follower(device, svc, url: str, d: str, chain_path: Path,
+                    chain, keys, addrs, fsrc, fdst, rng,
+                    posted: int) -> tuple:
+    """A read replica of the live leader, on the card, built as ``serve
+    --follow`` builds it (``batched_ingest=None``, the default device):
+    it bootstraps from the leader's seeded snapshot and catches up on
+    the shipped WAL (the four waves, one batched recovery and the cold
+    routed refresh, then the delta engine); the launch counts are then
+    the follower's alone. One live wave reaches both daemons. The
+    follower is held to: its scores within SERVE_SCORE_RTOL of a
+    float64 gather converge over its own edge set and of the leader's at
+    the same WAL position, lag 0, the leader's ``/bundle`` byte for byte
+    with a 304, ``POST /proofs`` 503, one full build; ``fleet``, ``slo``
+    and ``incident`` through the CLI against the pair; then a drain and a
+    ``serve --follow`` restart that resumes from its cursor with the same
+    scores and drains on SIGTERM. Returns ``(record, launches, the
+    attestations posted in all)``."""
+    import signal
+
+    import numpy as np
+    import torch
+
+    from protocol_tpu_torch.backend import TorchSparseBackend
+    from protocol_tpu_torch.client import ClientConfig
+    from protocol_tpu_torch.ops import kernels
+    from protocol_tpu_torch.ops.kernels import field_kernel as fk
+    from protocol_tpu_torch.service import FollowerService, ServiceConfig
+    from protocol_tpu_torch.utils import trace
+
+    on_card = device.type == "cuda"
+    res: dict = {}
+    fstate = Path(d) / "follower-state"
+    fconfig = ServiceConfig(port=0, poll_interval=0.05,
+                            refresh_interval=0.05)
+    domain = bytes.fromhex(ClientConfig().domain[2:])
+    batches0 = trace.summary().get("ingest.recover_batch", {}).get("count", 0)
+    if on_card:
+        torch.cuda.synchronize()
+    kernels.reset_launches()
+    fk.reset_launches()
+    t0 = time.perf_counter()
+    fol = FollowerService(url, domain, fconfig, str(fstate),
+                          batched_ingest=None,
+                          device=None if on_card else device)
+    proc = None
+    try:
+        furl = fol.start()
+        _wait_for(lambda: fol._cursor is not None, "the follower's bootstrap")
+        res["bootstrap_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        _wait_for(lambda: _follower_caught_up(fol, svc),
+                  "the follower's catch-up")
+        res["catch_up_s"] = time.perf_counter() - t1
+        if on_card:
+            torch.cuda.synchronize()
+        launches = {"lane_perm": kernels.LAUNCHES["lane_perm"],
+                    **{k: fk.LAUNCHES[k] for k in
+                       ("mont_mul", "add_mod", "sub_mod")}}
+        res["launches"] = launches
+        res["records"] = fol.records_applied
+        res["recover_batches"] = trace.summary().get(
+            "ingest.recover_batch", {}).get("count", 0) - batches0
+        res["caught_up_table"] = {
+            "cold": fol.refresher.table.cold,
+            "iterations": fol.refresher.table.iterations,
+            "refreshes": fol.refresher.refreshes,
+            "operator_builds": fol.refresher.operator_builds}
+        check(fol.records_applied == posted and fol.graph.invalid == 0,
+              f"the follower applied {fol.records_applied} of {posted} "
+              f"records, {fol.graph.invalid} invalid")
+        check(res["recover_batches"] >= 1,
+              "the follower did not recover its signers in batch")
+        check(fol.refresher.operator_builds == 1
+              and fol.refresher.delta_engine is not None,
+              "the follower's first refresh was not one routed build with "
+              "the delta engine anchored on it")
+
+        # one live wave: both daemons absorb it
+        config = ClientConfig()
+        (wave,) = _serve_churn(keys, addrs, fsrc, fdst, rng,
+                               bytes.fromhex(config.domain[2:]),
+                               waves=SERVE_LIVE_WAVES)
+        for i, signed in wave:
+            att = signed.attestation
+            chain.attest(addrs[i], [(att.about, att.get_key(),
+                                     signed.to_payload())])
+        posted += len(wave)
+        done = {"leader": lambda: svc.tailer.attestations >= posted
+                and svc.refresher.table.revision == svc.graph.revision,
+                "follower": lambda: fol.records_applied >= posted
+                and fol.last_backlog == 0
+                and fol.refresher.table.revision == fol.graph.revision}
+        published: dict = {}
+        t1 = time.perf_counter()
+        _save_local_chain(chain_path, chain)
+        while len(published) < len(done):  # both clocks from the post
+            for who, pred in done.items():
+                if who not in published and pred():
+                    published[who] = time.perf_counter() - t1
+            check(time.perf_counter() - t1 < SERVE_TIMEOUT_S,
+                  f"timed out: the live wave ({sorted(published)} done)")
+            time.sleep(0.005)
+        _wait_for(lambda: _follower_caught_up(fol, svc),
+                  "the follower's live wave")
+        res["live_wave"] = {"attestations": len(wave),
+                            "leader_published_s": published["leader"],
+                            "follower_published_s": published["follower"],
+                            "lag_s": published["follower"]
+                            - published["leader"]}
+        check(fol.records_applied == posted,
+              f"the follower holds {fol.records_applied} of {posted}")
+        check(fol.refresher.operator_builds == 1,
+              f"{fol.refresher.operator_builds} full builds on the "
+              "follower: churn after its first refresh rebuilt the operator")
+
+        # scores: the float64 gather reference over its own edges, and
+        # the leader's at the same WAL position
+        n, src, dst, val, revision, _ = fol.graph.snapshot()
+        check(revision == fol.refresher.table.revision,
+              "the follower's table trails its graph")
+        ref, _, _ = TorchSparseBackend(
+            dtype=torch.float64, device=device).converge_edges(
+            n, src, dst, val, np.ones(n, dtype=bool),
+            fconfig.initial_score, fconfig.max_iterations, tol=fconfig.tol,
+            alpha=fconfig.alpha)
+        ref_map = {"0x" + a.hex(): float(ref[i])
+                   for i, a in enumerate(fol.graph.addresses())}
+        got = _score_map(furl)
+        lead = _score_map(url)
+        check(set(got) == set(ref_map) == set(lead),
+              "the follower, its reference and the leader hold other peers")
+        res["served_max_rel_err"] = _max_rel(got, ref_map)
+        res["leader_max_rel_diff"] = _max_rel(got, lead)
+        check(res["served_max_rel_err"] <= SERVE_SCORE_RTOL,
+              f"a follower score is {res['served_max_rel_err']} relative "
+              "from the float64 reference")
+        check(res["leader_max_rel_diff"] <= SERVE_SCORE_RTOL,
+              f"a follower score is {res['leader_max_rel_diff']} relative "
+              "from the leader's")
+        lag = _series(_http(furl, "/metrics"), "ptpu_repl_lag_records")
+        res["repl_lag_records"] = lag
+        check(lag == 0.0, f"ptpu_repl_lag_records reads {lag}")
+        # the leader's bundle, verbatim (revalidated at most once a
+        # second on an eof poll), and its 304
+        _wait_for(lambda: _http_raw(furl, "/bundle")[2]
+                  == _http_raw(url, "/bundle")[2],
+                  "the leader's bundle on the follower", timeout=30.0)
+        _, headers, _ = _http_raw(furl, "/bundle")
+        status = _http_raw(furl, "/bundle",
+                           headers={"If-None-Match": headers["ETag"]})[0]
+        check(status == 304, f"/bundle If-None-Match answered {status}")
+        status = _http_raw(furl, "/proofs", data=b'{"kind": "eigentrust"}',
+                           headers={"Content-Type": "application/json"})[0]
+        check(status == 503, f"POST /proofs on the follower answered {status}")
+
+        # the operator verbs against the live pair
+        _wait_for(lambda: {r["role"] for r in _http(url, "/fleet")[
+            "instances"] if r.get("active")} >= {"leader", "follower"},
+            "the follower's row on /fleet", timeout=60.0)
+        rc, text, err = _cli(["fleet", "--url", url])
+        roles = {ln.split()[1]: ln.split()[2]
+                 for ln in text.splitlines()[2:] if len(ln.split()) > 2}
+        res["fleet"] = text.splitlines()
+        check(rc == 0 and roles.get("leader") == "up"
+              and roles.get("follower") == "up",
+              f"fleet lists {roles}: {err}")
+        rc, text, err = _cli(["slo", "--url", furl, "--json"])
+        res["slo_alerting"] = json.loads(text).get("alerting")
+        check(rc in (0, 1), f"slo --json failed: {err}")
+        inc = json.loads(_http_raw(url, "/incidents/capture", data=b"{}",
+                                   headers={"Content-Type":
+                                            "application/json"})[2])
+        rc, text, err = _cli(["incident", "--url", url])
+        check(rc == 0 and inc["id"] in text, f"incident lists {text!r}")
+        rc, text, err = _cli(["incident", "--url", url, "--id", inc["id"]])
+        res["autopsy_lines"] = len(text.splitlines())
+        check(rc == 0 and text.startswith(f"incident {inc['id']}\n"),
+              f"incident --id {inc['id']} rendered {text[:200]!r}: {err}")
+        # "latest" is the newest capture: ours, or one the leader's own
+        # watchdog took after it
+        rc, text, err = _cli(["incident", "--url", url, "--id", "latest"])
+        check(rc == 0 and text.startswith("incident inc-"),
+              f"incident --id latest rendered {text[:200]!r}: {err}")
+
+        before = got
+        cursor = fol._cursor
+        t1 = time.perf_counter()
+        clean = fol.shutdown()
+        res["drain_s"] = time.perf_counter() - t1
+        check(clean, "the follower's drain was not clean")
+
+        # restart through the CLI on the same state dir
+        stream = Path(d) / "follower-restart.jsonl"
+        env = dict(os.environ, PROTOCOL_TPU_TRACE=str(stream),
+                   PYTHONPATH=str(ROOT))
+        argv = [sys.executable, "-m", "protocol_tpu_torch.cli", "--assets",
+                d, "serve", "--follow", url, "--port", "0", "--state-dir",
+                str(fstate), "--device", "cuda" if on_card else "cpu"]
+        t1 = time.perf_counter()
+        proc = _Child(argv, d, "follower-restart", env)
+        line = proc.first_line(SERVE_TIMEOUT_S)
+        res["restart_to_listening_s"] = time.perf_counter() - t1
+        check("FOLLOWER listening on http://" in line,
+              f"the restarted follower did not come up: {line!r}")
+        furl2 = line.split("listening on ")[1].split()[0]
+        st = _http(furl2, "/status")
+        check(st["repl"]["cursor"] == "%d:%d" % cursor,
+              f"the restart resumed at {st['repl']['cursor']}, not "
+              f"{cursor}")
+        after = _score_map(furl2)
+        check(set(after) == set(before), "the restart serves other peers")
+        res["restart_max_rel_err"] = _max_rel(after, before)
+        check(res["restart_max_rel_err"] <= SERVE_RESTART_RTOL,
+              f"restarted follower scores differ by "
+              f"{res['restart_max_rel_err']}")
+        proc.proc.send_signal(signal.SIGTERM)
+        out, err = proc.finish(SERVE_TIMEOUT_S, "the follower's drain")
+        check(proc.proc.returncode == 0 and "follower drained" in out,
+              f"the restarted follower exited {proc.proc.returncode}: "
+              f"{err[-2000:]}")
+        names = [json.loads(ln).get("name") for ln in
+                 stream.read_text().splitlines()]
+        check("follower.restored" in names
+              and "follower.bootstrapped" not in names
+              and "follower.bootstrap_empty" not in names,
+              "the restarted follower bootstrapped again")
+        res["restart_s"] = time.perf_counter() - t1
+    finally:
+        fol.shutdown()
+        if proc is not None:
+            proc.stop()
+    return res, launches, posted
 
 
 def phase_serve(device, peers: int = SERVE_PEERS) -> dict:
@@ -2210,8 +2580,9 @@ def phase_serve(device, peers: int = SERVE_PEERS) -> dict:
         client = Client(config, SCORES_MNEMONICS[0], batched_ingest=None,
                         device=None if on_card else device)
         client.chain = FileBackedLocalChain(files.chain_json())
-        svc_config = ServiceConfig(port=0, poll_interval=0.05,
-                                   refresh_interval=0.05)
+        svc_config = ServiceConfig(
+            port=0, poll_interval=0.05, refresh_interval=0.05,
+            snapshot_every=SERVE_LEADER_SNAPSHOT_EVERY)
         trace.TRACER.reset()
         if on_card:
             torch.cuda.synchronize()
@@ -2348,6 +2719,10 @@ def phase_serve(device, peers: int = SERVE_PEERS) -> dict:
             res["served_checked"] = len(ids)
             check(worst <= SERVE_SCORE_RTOL, f"a served score is {worst} "
                   "relative from the float64 reference")
+            follower, follower_launches, posted = _serve_follower(
+                device, svc, url, d, files.chain_json(), chain, keys, addrs,
+                fsrc, fdst, rng, posted)
+            res["follower"] = follower
             before = _http(url, "/scores")
         finally:
             t0 = time.perf_counter()
@@ -2365,11 +2740,9 @@ def phase_serve(device, peers: int = SERVE_PEERS) -> dict:
         if not on_card:
             argv += ["--device", "cpu"]
         t0 = time.perf_counter()
-        proc = subprocess.Popen(argv, stdout=subprocess.PIPE,
-                                stderr=subprocess.PIPE, text=True, cwd=ROOT,
-                                env=env)
+        proc = _Child(argv, d, "restart", env)
         try:
-            line = _readline(proc, SERVE_TIMEOUT_S)
+            line = proc.first_line(SERVE_TIMEOUT_S)
             res["restart_to_listening_s"] = time.perf_counter() - t0
             check("listening on http://" in line,
                   f"the restarted daemon did not come up: {line!r}")
@@ -2412,10 +2785,11 @@ def phase_serve(device, peers: int = SERVE_PEERS) -> dict:
                   and int(wal.group(2)) == st["wal_bytes"]
                   and int(snaps.group(1)) == st["snapshots"],
                   f"store inspect {text!r} disagrees with /status {st}")
-            proc.send_signal(signal.SIGTERM)
-            out, err = proc.communicate(timeout=SERVE_TIMEOUT_S)
-            check(proc.returncode == 0 and "service drained" in out,
-                  f"the restarted daemon exited {proc.returncode}: {err}")
+            proc.proc.send_signal(signal.SIGTERM)
+            out, err = proc.finish(SERVE_TIMEOUT_S, "the daemon's drain")
+            check(proc.proc.returncode == 0 and "service drained" in out,
+                  f"the restarted daemon exited {proc.proc.returncode}: "
+                  f"{err[-2000:]}")
             # the restarted daemon's own trace stream: its restore event
             # (snapshot load and WAL replay) and the obs verb's lint
             restored = [json.loads(ln) for ln in stream.read_text()
@@ -2426,14 +2800,14 @@ def phase_serve(device, peers: int = SERVE_PEERS) -> dict:
             res["restart"]["obs"] = text.splitlines()[0] if text else err
             check(rc == 0, f"obs rejected the daemon's stream: {err}")
         finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+            proc.stop()
     res["wall_s"] = time.perf_counter() - t_phase
     emit("serve", **res)
     for k, v in launches.items():
         check(v > 0, f"{k} was not launched on the serve path")
-    return launches
+    for k, v in follower_launches.items():
+        check(v > 0, f"{k} was not launched on the follower's path")
+    return launches, follower_launches
 
 
 # --- the proof path ------------------------------------------------------------
@@ -2878,11 +3252,12 @@ def _et_verifier(d: str) -> dict:
     return rec
 
 
-def phase_prove(device) -> dict:
-    """The EigenTrust proof path on the card (``zk/prover_tpu.py``: rounds
-    3–4 of ``prove_fast_tpu``, every field product on B2 and every sum on
-    ``add_mod``/``sub_mod``, the NTT's stage products on ``_int_mm``);
-    returns the field kernels' launches of the k = 20 prove."""
+def phase_prove_pieces(device) -> dict:
+    """The device prover's pieces (``zk/prover_tpu.py``, the NTT's stage
+    products on ``_int_mm``, every field product on B2 and every sum on
+    ``add_mod``/``sub_mod``), held against the host prover core and
+    timed: the NTT at three sizes, a k = 16 ``DeviceProver`` and a
+    k = 14 lockstep prove. Returns the NTT records."""
     import torch
 
     from protocol_tpu_torch.native import prover as native
@@ -2899,6 +3274,18 @@ def phase_prove(device) -> dict:
     torch.cuda.empty_cache()
     lock = _lockstep(device, PROVE_LOCKSTEP_K)
     emit("prove_lockstep", **lock)
+    torch.cuda.empty_cache()
+    return {"ntt": ntt, "wall_s": time.perf_counter() - t_phase}
+
+
+def phase_prove(device, pieces: dict) -> dict:
+    """The EigenTrust proof verbs at the tiny shape on the card (rounds
+    3–4 of ``prove_fast_tpu``) and the profile verb's stage coverage;
+    returns the field kernels' launches of the k = 20 prove."""
+    import torch
+
+    t_phase = time.perf_counter()
+    ntt = pieces["ntt"]
     rec = _et_cli(device, {})
     emit("prove_et", **rec)
     torch.cuda.empty_cache()
@@ -2927,6 +3314,7 @@ def phase_prove(device) -> dict:
     torch.cuda.empty_cache()
     trace.sync_spans(False)  # the verb turned it on
     emit("prove", wall_s=time.perf_counter() - t_phase,
+         pieces_wall_s=pieces["wall_s"],
          ntt_ms={k: v["ntt"]["ms"] for k, v in ntt.items()},
          prove_s=rec["prove_s"], host_commits_s=rec["host_commits_s"],
          device_r34_s=rec["device_r34_s"], launches=rec["launches"])
@@ -3103,6 +3491,227 @@ def phase_threshold(device) -> dict:
     return rec
 
 
+def _lease_first_units(store) -> None:
+    """Publish the first unit of each dispatch only once the
+    prove-worker holds its lease (or has put its result), as
+    ``tests/test_torch_fabric.py`` does for every unit. The pool's own
+    threads claim a job's units in the order the worker lists them, so
+    left alone the worker mostly runs units the pool already took; a
+    live lease makes the rendezvous wait for the worker's result and
+    apply it. An idle pool worker lending a hand still runs a unit
+    whatever its lease, so the phase's later jobs keep it busy."""
+    publish = store.publish
+
+    def publish_leased(job_id, unit):
+        fid = publish(job_id, unit)
+        if unit.index == 0:
+            t_end = time.monotonic() + 30.0
+            while store.lease_state(fid) == "none" and not os.path.exists(
+                    store._path("results", fid + ".bin")) \
+                    and time.monotonic() < t_end:
+                time.sleep(0.005)
+        return fid
+
+    store.publish = publish_leased
+
+
+def phase_fabric(device) -> dict:
+    """The proving fabric on the card: a ``TrustService`` with a state
+    dir, two pool workers, ``shard_proves=1`` and ``fabric=1`` serves a
+    ``synthetic`` job kind that proves a FABRIC_K synthetic circuit
+    (``cli/profilecmd.synthetic_circuit``) on the card through
+    ``prove_fast_tpu`` (the device path ``prove_auto`` routes a CUDA
+    device to; it takes the seeded blinding stream ``prove_auto`` does
+    not), while ``python -m protocol_tpu_torch.cli prove-worker``
+    polls ``<state-dir>/fabric`` as its own process. Jobs go through
+    ``POST /proofs`` one at a time, up to FABRIC_MAX_JOBS, until one has
+    ``prove.shard`` spans with ``remote=1`` under the worker's name.
+    Held: the worker registers, every job's proof equals the unsharded
+    prove's bytes (and verifies), the fabric series are on
+    ``/metrics``, ``fleet`` lists the prove-worker, the worker exits 0
+    on SIGTERM."""
+    import random
+    import signal
+    import threading
+
+    import torch
+
+    from protocol_tpu_torch.cli.profilecmd import synthetic_circuit
+    from protocol_tpu_torch.client import Client, ClientConfig
+    from protocol_tpu_torch.ops.kernels import field_kernel as fk
+    from protocol_tpu_torch.service import ServiceConfig, TrustService
+    from protocol_tpu_torch.utils import trace
+    from protocol_tpu_torch.utils.fields import BN254_FR_MODULUS as R
+    from protocol_tpu_torch.zk import prover_fast as pf
+    from protocol_tpu_torch.zk.plonk import verify
+
+    on_card = device.type == "cuda"
+    t_phase = time.perf_counter()
+    rec: dict = {"k": FABRIC_K}
+    t0 = time.perf_counter()
+    cs = synthetic_circuit(gates=(1 << FABRIC_K) - 64, seed=FABRIC_SEED,
+                           lookup_row=True)
+    params = pf.setup_params_fast(FABRIC_K, seed=b"chip-smoke-fabric")
+    pk = pf.keygen_fast(params, cs, k=FABRIC_K, eval_pk=True)
+    rec["setup_s"] = time.perf_counter() - t0
+
+    def prove() -> bytes:
+        rng = random.Random(FABRIC_SEED)
+        return pf.prove_fast_tpu(params, pk, cs,
+                                 randint=lambda: rng.randrange(R),
+                                 device=device)
+
+    def post(kind: str) -> str:
+        status, _, body = _http_raw(
+            url, "/proofs", data=json.dumps({"kind": kind}).encode(),
+            headers={"Content-Type": "application/json"})
+        check(status == 202, f"POST /proofs {kind} answered {status}")
+        return json.loads(body)["job_id"]
+
+    def finished(job_id: str) -> dict:
+        _wait_for(lambda: _http(url, f"/proofs/{job_id}")["status"]
+                  in ("done", "failed"), f"job {job_id}",
+                  timeout=FABRIC_JOB_TIMEOUT_S)
+        job = _http(url, f"/proofs/{job_id}")
+        check(job["status"] == "done", f"job {job_id}: {job.get('error')}")
+        return job
+
+    # a "hold" job keeps the second pool worker busy until the gate opens
+    gate = threading.Event()
+    proc = svc = None
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as d:
+        state = Path(d) / "service-state"
+        # the worker process starts first: its start-up (a Python
+        # process importing torch) runs under the unsharded prove
+        env = dict(os.environ, PYTHONPATH=str(ROOT),
+                   PTPU_SERVE_TELEMETRY_INTERVAL="0.5")
+        t_worker = time.perf_counter()
+        proc = _Child(
+            [sys.executable, "-m", "protocol_tpu_torch.cli", "--assets", d,
+             "prove-worker", "--state-dir", state, "--name",
+             FABRIC_WORKER, "--poll", "0.02"], d, "prove-worker", env)
+        try:
+            t0 = time.perf_counter()
+            proof = prove()  # cold: the device prover's init included
+            rec["unsharded_prove_s"] = time.perf_counter() - t0
+            check(verify(params, pk, cs.public_values(), proof),
+                  "the unsharded proof does not verify")
+            pf._DEVICE_PROVERS.clear()
+            svc = TrustService(
+                Client(ClientConfig(), SCORES_MNEMONICS[0],
+                       device=None if on_card else device),
+                ServiceConfig(port=0, poll_interval=0.05,
+                              refresh_interval=0.05, pool_workers=2,
+                              shard_proves=1, fabric=1),
+                str(state / "cursor"),
+                provers={"synthetic": lambda p: {"proof": prove().hex()},
+                         "hold": lambda p: {"released": gate.wait(
+                             FABRIC_JOB_TIMEOUT_S)}},
+                state_dir=str(state))
+            check(svc.fabric is not None and svc.jobs.fabric is svc.fabric
+                  and "synthetic" in svc.jobs.shard_kinds,
+                  "the daemon built no fabric")
+            _lease_first_units(svc.fabric)
+            url = svc.start()
+            line = proc.first_line(SERVE_TIMEOUT_S)
+            check(f"prove-worker {FABRIC_WORKER} polling" in line,
+                  f"the prove-worker did not start: {line!r}")
+            _wait_for(lambda: (_http(url, "/status")["pool"]["fabric"]
+                               or {}).get("workers_live", 0) >= 1,
+                      "the prove-worker's registration", timeout=120.0)
+            rec["worker_up_s"] = time.perf_counter() - t_worker
+            if on_card:
+                torch.cuda.synchronize()
+            fk.reset_launches()
+            jobs = []
+            for n in range(FABRIC_MAX_JOBS):
+                # the first job free, so the idle pool worker lends; the
+                # next beside a held one: with no idle lender the first
+                # unit, leased by the worker, waits for the worker's
+                # result (an idle lender runs units whatever their lease)
+                hold = None
+                if n > 0:
+                    hold = post("hold")
+                    _wait_for(lambda: _http(url, f"/proofs/{hold}")[
+                        "status"] == "running", f"job {hold} running",
+                        timeout=FABRIC_JOB_TIMEOUT_S)
+                n0 = len(trace.TRACER.spans)
+                job_id = post("synthetic")
+                try:
+                    job = finished(job_id)
+                finally:
+                    gate.set()
+                if hold is not None:
+                    finished(hold)
+                gate.clear()
+                check(bytes.fromhex(job["result"]["proof"]) == proof,
+                      f"job {job_id}: the sharded proof differs from the "
+                      "unsharded prove's bytes")
+                shards = [s for s in list(trace.TRACER.spans)[n0:]
+                          if s.name == "prove.shard"
+                          and job_id in s.trace_ids]
+                by_stage: dict = {}
+                for s in shards:
+                    by_stage[s.fields["stage"]] = by_stage.get(
+                        s.fields["stage"], 0) + 1
+                remote = [s for s in shards if s.fields.get("remote") == 1]
+                check(all(s.fields.get("worker") == FABRIC_WORKER
+                          for s in remote),
+                      "a remote unit carries another worker's name")
+                jobs.append({"job_id": job_id, "worker": job.get("worker"),
+                             "beside_held_job": hold is not None,
+                             "prove_s": job["finished_at"]
+                             - job["started_at"],
+                             "units": by_stage, "remote_units": len(remote),
+                             "lent_units": sum(
+                                 1 for s in shards if not s.fields.get(
+                                     "remote") and s.fields.get("worker")
+                                 != job.get("worker"))})
+                if remote:
+                    break
+            if on_card:
+                torch.cuda.synchronize()
+            rec["launches"] = {k: fk.LAUNCHES[k]
+                               for k in ("mont_mul", "add_mod", "sub_mod")}
+            rec["jobs"] = jobs
+            rec["jobs_tried"] = len(jobs)
+            rec["remote_units"] = sum(j["remote_units"] for j in jobs)
+            check(rec["remote_units"] >= 1, f"no unit was executed by "
+                  f"{FABRIC_WORKER} in {len(jobs)} jobs")
+            metrics = _http(url, "/metrics")
+            rec["fabric_units_total"] = _series(metrics,
+                                                "ptpu_fabric_units_total")
+            missing = [n for n in ("ptpu_fabric_units_total",
+                                   "ptpu_fabric_workers",
+                                   "ptpu_fabric_lease_age_seconds",
+                                   "ptpu_prove_shards_total")
+                       if n not in metrics]
+            check(not missing, f"/metrics misses {missing}")
+            rec["status_fabric"] = _http(url, "/status")["pool"]["fabric"]
+            _wait_for(lambda: "prove-worker" in {
+                r["role"] for r in _http(url, "/fleet")["instances"]},
+                "the prove-worker's row on /fleet", timeout=60.0)
+            rc, text, err = _cli(["fleet", "--url", url])
+            check(rc == 0 and FABRIC_WORKER in text
+                  and "prove-worker" in text,
+                  f"fleet does not list the prove-worker: {text!r} {err}")
+            proc.proc.send_signal(signal.SIGTERM)
+            out, err = proc.finish(120.0, "the prove-worker's exit")
+            rec["worker_exit"] = out.strip().splitlines()[-1:]
+            check(proc.proc.returncode == 0, f"the prove-worker exited "
+                  f"{proc.proc.returncode}: {err[-2000:]}")
+        finally:
+            gate.set()
+            if svc is not None:
+                svc.shutdown()
+            proc.stop()
+    for k, v in rec["launches"].items():
+        check(v > 0, f"{k} was not launched on the fabric path")
+    rec["wall_s"] = time.perf_counter() - t_phase
+    emit("fabric", **rec)
+    return rec
+
+
 def _field_record(name: str, launches: int, err: int, times: dict) -> dict:
     t = times[(name, 262_144)]
     replaces = {"mont_mul": "protocol_tpu/ops/pallas_kernels.py:32",
@@ -3116,9 +3725,61 @@ def _field_record(name: str, launches: int, err: int, times: dict) -> dict:
             "library_ms": None}
 
 
+THRESHOLD_CHILD = "--threshold-child"  # internal: phase threshold alone
+
+
+def _start_threshold() -> tuple:
+    """Phase threshold as a process of its own, beside the host-bound
+    phases: ``(child, its directory)``. Its launch counts are its own."""
+    d = Path(tempfile.mkdtemp(prefix=".chip_smoke_", dir=ROOT))
+    argv = [sys.executable, ROOT / "chip_smoke.py", THRESHOLD_CHILD,
+            d / "threshold.json"]
+    return _Child(argv, d, "threshold", dict(os.environ)), d
+
+
+def _join_threshold(child, d: Path) -> dict:
+    """Wait for the threshold process; its record, or its failure."""
+    try:
+        _, err = child.finish(SMOKE_DEADLINE_S, "phase threshold")
+    except SmokeFailure as e:
+        raise SmokeFailure(f"{e}: {child.err_path.read_text()[-3000:]}") \
+            from None
+    check(child.proc.returncode == 0,
+          f"phase threshold exited {child.proc.returncode}: {err[-3000:]}")
+    return json.loads((d / "threshold.json").read_text())
+
+
+def _threshold_child(device, out: Path) -> int:
+    from protocol_tpu_torch.utils import trace
+
+    trace.enable()  # in memory: the phase reads the prover's histograms
+    try:
+        rec = phase_threshold(device)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    out.write_text(json.dumps(rec))
+    return 0
+
+
+def _host() -> dict:
+    """The host's CPUs as this process sees them, and its load: the
+    proof phases' host work scales with them."""
+    try:
+        quota = Path("/sys/fs/cgroup/cpu.max").read_text().strip()
+    except OSError:
+        quota = None
+    return {"cpus": len(os.sched_getaffinity(0)), "cpu_count": os.cpu_count(),
+            "cgroup_cpu_max": quota, "loadavg": list(os.getloadavg())}
+
+
 def main() -> int:
+    global _T0
+    import faulthandler
+
     import torch
 
+    _T0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3130,37 +3791,56 @@ def main() -> int:
               file=sys.stderr)
         return 2
     device = torch.device("cuda")
+    if sys.argv[1:2] == [THRESHOLD_CHILD]:
+        return _threshold_child(device, Path(sys.argv[2]))
     from protocol_tpu_torch.utils import trace
 
     trace.enable()  # in memory: the churn phase reads the build counter
     smi = nvidia_smi_line()
     emit("card", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda, python=sys.version.split()[0])
+         cuda=torch.version.cuda, python=sys.version.split()[0],
+         host=_host())
     t_start = time.perf_counter()
+    faulthandler.dump_traceback_later(DUMP_AFTER_S - (t_start - _T0))
+    child = None
     try:
         phase_build()
+        # the phases that time kernels run alone on the card
         max_err = phase_kernel_vs_plain(device)
         times = phase_kernel_times(device)
         launches, graph = phase_main_path(device)
         delta = phase_delta(device, graph)
         topics = phase_topics(device, graph)
         del graph
-        scenario_launches = phase_scenario(device)
-        phase_entry(device)
-        phase_cli()
         field_err = phase_field_kernels_vs_plain(device)
         field_times = phase_field_times(device)
         converge_launches = phase_field_converge(device)
+        pieces = phase_prove_pieces(device)
+        # the Threshold proofs (host circuit builds and commits, most of
+        # a run's wall) beside the rest, which times no kernel
+        child, child_dir = _start_threshold()
+        t_child = time.perf_counter()
+        scenario_launches = phase_scenario(device)
+        phase_entry(device)
+        phase_cli()
         field_launches = phase_ingest(device)
         scores_launches = phase_scores(device)
-        serve_launches = phase_serve(device)
-        prove = phase_prove(device)
-        threshold = phase_threshold(device)
-        emit("threshold", **threshold)
+        serve_launches, follower_launches = phase_serve(device)
+        prove = phase_prove(device, pieces)
+        fabric = phase_fabric(device)
+        t_rest = time.perf_counter() - t_child
+        threshold = _join_threshold(child, child_dir)
+        emit("threshold", **threshold, beside_s=t_rest,
+             joined_after_s=time.perf_counter() - t_child)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+        if child is not None:
+            child.stop()
+            shutil.rmtree(child_dir, ignore_errors=True)
     edge = times[262_144]  # the edge route's first stage: forward, m = T
     print(json.dumps({"kernels": [{
         "name": "lane_perm",
@@ -3178,7 +3858,8 @@ def main() -> int:
                              "churn": delta["lane_perm_launches"],
                              "topics": topics["lane_perm_launches"],
                              "scenario": scenario_launches,
-                             "serve": serve_launches["lane_perm"]},
+                             "serve": serve_launches["lane_perm"],
+                             "follower": follower_launches["lane_perm"]},
         "batched": topics["batched_stage"],
     }] + [dict(_field_record(k, field_launches[k], field_err[k],
                              field_times),
@@ -3186,12 +3867,14 @@ def main() -> int:
                    "ingest": field_launches[k],
                    "scores": scores_launches[k],
                    "serve": serve_launches[k],
+                   "follower": follower_launches[k],
                    "prove": prove["launches"][k],
                    "threshold": threshold["launches"][k],
+                   "fabric": fabric["launches"][k],
                    **({"field_converge": converge_launches}
                       if k == "mont_mul" else {})})
           for k in ("mont_mul", "add_mod", "sub_mod")]}), flush=True)
-    emit("done", wall_s=time.perf_counter() - t_start)
+    emit("done", wall_s=time.perf_counter() - t_start, host=_host())
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

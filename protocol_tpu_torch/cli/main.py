@@ -51,13 +51,20 @@
 - ``serve`` runs the trust-scores daemon (``service``): the reference's
   flags plus ``--device``; without a card and without ``--device cpu``
   it fails before it binds a port or touches the state dir.
-  ``--follow`` is refused until the follower is ported, and
-  ``--shard-proves``/``--fabric`` until ROADMAP A6b.
+  ``--follow LEADER_URL`` runs a read replica (``FollowerService``)
+  whose refresh and batched signer recovery run on that device;
+  ``--shard-proves 1`` lends idle pool workers into a running prove's
+  work units and ``--fabric 1`` publishes them under
+  ``<state-dir>/fabric`` for external ``prove-worker`` processes.
+- ``prove-worker`` is the fabric's external worker (``--state-dir`` on
+  the same box, ``--url`` across boxes): its executors are host work on
+  the C++ prover core, so it takes no ``--device``; it ships its
+  telemetry to the leader, whose ``/fleet`` lists it.
 - ``store inspect|compact`` and ``obs`` are the reference's verbs; the
   store's files and the trace streams are the same in both packages.
-
-``prove-worker`` waits for ROADMAP A6b, and ``fleet`` for the follower
-(A4); argparse rejects them as unknown verbs.
+- ``fleet``, ``slo`` and ``incident`` render a live daemon's ``/fleet``,
+  ``/slo`` and ``/incidents`` (host work, no ``--device``; ``slo`` exits
+  1 while an alert is latched).
 """
 
 from __future__ import annotations
@@ -229,12 +236,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--shard-proves", type=int, default=None,
                    metavar="0|1",
                    help="1: fan a single prove's work units out to idle "
-                        "pool workers (refused until ROADMAP A6b; "
-                        "default 0)")
+                        "pool workers (byte-identical proofs; default 0)")
     p.add_argument("--fabric", type=int, default=None, metavar="0|1",
-                   help="1: publish sharded-prove work units to "
-                        "external prove-worker processes (refused until "
-                        "ROADMAP A6b; default 0)")
+                   help="1: publish sharded-prove work units under "
+                        "<state-dir>/fabric/ so external prove-worker "
+                        "processes lend into running proves "
+                        "(needs --shard-proves 1 and a state dir; "
+                        "default 0)")
     p.add_argument("--fabric-lease-ttl", type=float, default=None,
                    help="seconds an external worker's unit lease "
                         "lives without a heartbeat before the unit "
@@ -253,9 +261,45 @@ def build_parser() -> argparse.ArgumentParser:
                    help="block-cursor checkpoint directory "
                         "(default <state-dir>/cursor)")
     p.add_argument("--follow", default=None, metavar="LEADER_URL",
-                   help="run as a read replica of a leader daemon "
-                        "(refused until the follower is ported)")
+                   help="run as a READ REPLICA of a leader daemon: "
+                        "restore from its /repl/snapshot, tail its "
+                        "shipped WAL (/repl/wal), refresh and serve "
+                        "/scores //score/<addr> //bundle hermetically "
+                        "(no chain tailer, no proof pool; POST /proofs "
+                        "answers 503)")
     p.add_argument("--device", default=None, help=_DEVICE_HELP)
+
+    p = sub.add_parser(
+        "prove-worker",
+        help="lend this process into a serve --fabric daemon's running "
+             "proves: poll the fabric for published work units "
+             "(commit MSM batches, quotient row chunks, opening "
+             "folds), lease + execute + publish results — "
+             "byte-identical placement, lease-reclaim crash safety")
+    p.add_argument("--state-dir", default=None,
+                   help="the DAEMON's state dir (the fabric lives at "
+                        "<state-dir>/fabric; default "
+                        "<assets>/service-state) — same-box, "
+                        "shared-filesystem mode")
+    p.add_argument("--url", default=None,
+                   help="daemon base URL (http://host:port) — "
+                        "cross-box mode over the /fabric HTTP surface "
+                        "instead of a shared filesystem")
+    p.add_argument("--name", default=None,
+                   help="worker name carried on leases, results and "
+                        "the prove.shard spans of units this process "
+                        "executes (default fw<pid>)")
+    p.add_argument("--poll", type=float, default=0.05,
+                   help="seconds between idle fabric polls")
+    p.add_argument("--lease-ttl", type=float, default=5.0,
+                   help="lease/heartbeat TTL seconds (match the "
+                        "daemon's --fabric-lease-ttl)")
+    p.add_argument("--max-units", type=int, default=None,
+                   help="exit after executing this many units "
+                        "(default: run until signalled)")
+    p.add_argument("--idle-exit", type=float, default=None,
+                   help="exit after this many seconds with no "
+                        "claimable unit (default: poll forever)")
 
     p = sub.add_parser(
         "obs",
@@ -279,6 +323,44 @@ def build_parser() -> argparse.ArgumentParser:
                         "(attestation digest prefix, job id — including "
                         "its prover-stage spans and the pool worker "
                         "that executed them, request id)")
+
+    p = sub.add_parser(
+        "fleet",
+        help="fleet observability: render a live leader's /fleet "
+             "registry as an operator table — one row per known "
+             "instance (leader, followers, prove-workers) with role, "
+             "freshness, repl lag and report age; dead instances stay "
+             "listed (staleness-honest), flagged inactive")
+    p.add_argument("--url", required=True,
+                   help="leader daemon base URL (http://host:port)")
+    p.add_argument("--json", action="store_true",
+                   help="print the raw /fleet JSON instead of the table")
+
+    p = sub.add_parser(
+        "slo",
+        help="SLO burn rates: render a live daemon's /slo evaluation — "
+             "per-objective fast/slow-window burn, in-budget flags and "
+             "latched alerts; exits 1 while any alert is latched")
+    p.add_argument("--url", required=True,
+                   help="daemon base URL (http://host:port) — leader "
+                        "or follower (each evaluates its own SLOs)")
+    p.add_argument("--json", action="store_true",
+                   help="print the raw /slo JSON instead of the table")
+
+    p = sub.add_parser(
+        "incident",
+        help="incident autopsies: list a live daemon's captured "
+             "flight-recorder bundles (/incidents), or render one as a "
+             "human-readable autopsy — trigger, burn timeline, top "
+             "spans, device cost per plan, named-thread stacks")
+    p.add_argument("--url", required=True,
+                   help="daemon base URL (http://host:port) — leader "
+                        "or follower (each keeps its own store)")
+    p.add_argument("--id", default=None,
+                   help="incident id to render (default: list the "
+                        "index; 'latest' renders the newest bundle)")
+    p.add_argument("--json", action="store_true",
+                   help="print the raw JSON instead of the autopsy")
 
     p = sub.add_parser(
         "store",
@@ -900,9 +982,6 @@ def handle_serve(args, files, config):
     cpu`` the verb fails before it binds a port or touches the state
     dir."""
     device = cli_device(args.device)
-    if args.follow:
-        raise CliError("serve --follow (the read replica) is not ported "
-                       "yet (ROADMAP A4)")
 
     from ..service import ServiceConfig, TrustService
 
@@ -915,13 +994,36 @@ def handle_serve(args, files, config):
         shard_proves=args.shard_proves,
         fabric=args.fabric, fabric_lease_ttl=args.fabric_lease_ttl,
         proof_shape=args.shape, transcript=args.transcript,
-        state_dir=args.state_dir)
+        state_dir=args.state_dir, follow=args.follow)
     if svc_config.state_dir:
         state_dir = Path(svc_config.state_dir)
         if not state_dir.is_absolute():
             state_dir = files.assets / state_dir
     else:
         state_dir = files.service_state_dir()
+    if svc_config.follow:
+        # follower replica: no chain client at all — the leader's
+        # shipped WAL is the only upstream. The domain comes from the
+        # same config the leader reads, so records decode identically.
+        from ..service.follower import FollowerService
+
+        domain = bytes.fromhex(config.domain.removeprefix("0x"))
+        follower = FollowerService(
+            svc_config.follow, domain, svc_config, str(state_dir),
+            batched_ingest=None, device=device)
+        url = follower.start()
+        follower.install_signal_handlers()
+        print(f"trust-scores FOLLOWER listening on {url} "
+              f"(leader: {svc_config.follow}, state: {state_dir}, "
+              f"peers: {follower.graph.n}, device: {device}); "
+              "SIGTERM drains", flush=True)
+        follower.wait()
+        if follower.drain_clean:
+            print("follower drained", flush=True)
+            return 0
+        print("follower drained UNCLEAN (timeout or persist failure)",
+              flush=True)
+        return 1
     if args.checkpoint_dir:
         ck_dir = Path(args.checkpoint_dir)
         if not ck_dir.is_absolute():
@@ -960,6 +1062,94 @@ def handle_serve(args, files, config):
     print("service drained UNCLEAN (timeout or persist failure)",
           flush=True)
     return 1
+
+
+def handle_prove_worker(args, files, config):
+    """Run one external fabric worker process (the worker half of
+    ``serve --fabric``): poll, lease, execute, publish — until
+    ``--max-units`` / ``--idle-exit`` / SIGINT/SIGTERM. Its executors
+    are host work on the prover core: no device to settle."""
+    import functools
+    import os
+    import signal
+    import threading
+
+    from ..service.telemetry import TelemetryPusher, set_build_info
+    from ..service.watchdog import Heartbeats, StallWatchdog
+    from ..utils import trace
+    from ..zk.fabric import FabricStore, RemoteFabric, run_worker
+
+    name = args.name or f"fw{os.getpid()}"
+    if args.url:
+        fabric = RemoteFabric(args.url)
+        fabric.lease_ttl = args.lease_ttl
+        where = args.url
+    else:
+        if args.state_dir:
+            state_dir = Path(args.state_dir)
+            if not state_dir.is_absolute():
+                state_dir = files.assets / state_dir
+        else:
+            state_dir = files.service_state_dir()
+        from ..service.faults import FaultInjector
+
+        root = Path(state_dir) / "fabric"
+        # env-gated fault injection (PTPU_FAULT_DISK): a fault test can
+        # tear THIS process's result writes; with the env unset it costs
+        # nothing
+        fabric = FabricStore(str(root), lease_ttl=args.lease_ttl,
+                             faults=FaultInjector())
+        where = str(root)
+    stop = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            signal.signal(sig, lambda *_: stop.set())
+        except (ValueError, OSError):  # non-main thread / platform
+            pass
+    # fleet observability: every span/event carries instance/role,
+    # ptpu_build_info is up from the first scrape, and a telemetry
+    # pusher ships the instrument state + recent span window to the
+    # leader (HTTP in --url mode, atomic file drop under
+    # <state-dir>/fabric/telemetry otherwise — the leader's observer
+    # thread sweeps the drop dir)
+    if not trace.TRACER.enabled:
+        trace.enable()  # in-memory: telemetry needs the instruments
+    set_build_info(name, "prove-worker")
+    telemetry_interval = float(
+        os.environ.get("PTPU_SERVE_TELEMETRY_INTERVAL", "2.0") or 2.0)
+    target = args.url if args.url else str(Path(where) / "telemetry")
+    pusher = TelemetryPusher(
+        target, name, "prove-worker", interval=telemetry_interval,
+        summary=lambda: {"polling": where,
+                         "lease_ttl": args.lease_ttl})
+    threading.Thread(target=pusher.run, args=(stop,), daemon=True,
+                     name="ptpu-telemetry").start()
+    # stall watchdog (no incident store — the worker's gauges ship to
+    # the leader via telemetry, where the fleet-wide SLO path pages):
+    # the worker loop heartbeats, a wedged native call ages it out
+    beats = Heartbeats()
+    loop_name = f"ptpu-worker-{name}"
+    beats.register(loop_name)
+    watchdog = StallWatchdog(
+        beats,
+        stall_after=float(os.environ.get(
+            "PTPU_SERVE_WATCHDOG_STALL_AFTER", "30") or 30))
+    watchdog.start()
+    print(f"prove-worker {name} polling {where} "
+          f"(lease ttl {args.lease_ttl:g}s)", flush=True)
+    executed = run_worker(fabric, name, poll=args.poll,
+                          lease_ttl=args.lease_ttl,
+                          max_units=args.max_units,
+                          idle_exit=args.idle_exit, stop=stop,
+                          beat=functools.partial(beats.beat, loop_name))
+    stop.set()
+    watchdog.stop()
+    # one farewell push so the final units' spans/instruments ship
+    # even on a quick exit (best-effort, like every push)
+    pusher.push_once()
+    print(f"prove-worker {name} exiting after {executed} units",
+          flush=True)
+    return 0
 
 
 def handle_obs(args, files, config):
@@ -1224,6 +1414,114 @@ def handle_store(args, files, config):
     return 0
 
 
+def _fetch_json(url: str, path: str, timeout: float = 10.0):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url.rstrip("/") + path,
+                                    timeout=timeout) as resp:
+            return json.loads(resp.read())
+    except (urllib.error.URLError, OSError, ValueError) as e:
+        raise EigenError("network_error",
+                         f"cannot fetch {path} from {url}: {e}") from e
+
+
+def _fmt_cell(value, unit: str = "") -> str:
+    if value is None:
+        return "-"  # no data (pre-publish sentinel): honest, not -1
+    if isinstance(value, float):
+        return f"{value:.2f}{unit}"
+    return f"{value}{unit}"
+
+
+def handle_fleet(args, files, config):
+    """Render a leader's /fleet registry as an operator table: one
+    row per known instance, dead ones flagged, never dropped."""
+    fleet = _fetch_json(args.url, "/fleet")
+    if args.json:
+        print(json.dumps(fleet, indent=2))
+        return 0
+    rows = fleet.get("instances", [])
+    counts = fleet.get("counts", {})
+    print(f"fleet @ {args.url}: {counts.get('active', 0)}/"
+          f"{counts.get('total', 0)} active "
+          f"(ttl {fleet.get('ttl_seconds', 0):g}s) "
+          f"roles={counts.get('by_role', {})}")
+    width = max([len(r.get("instance", "")) for r in rows] + [8])
+    print(f"{'instance':<{width}}  {'role':<12} {'up':<4} "
+          f"{'report_age':>10}  {'freshness':>9}  {'repl_lag':>8}")
+    for r in rows:
+        print(f"{r.get('instance', '?'):<{width}}  "
+              f"{r.get('role', '?'):<12} "
+              f"{'up' if r.get('active') else 'DEAD':<4} "
+              f"{_fmt_cell(r.get('report_age_seconds'), 's'):>10}  "
+              f"{_fmt_cell(r.get('score_freshness_seconds'), 's'):>9}  "
+              f"{_fmt_cell(r.get('repl_lag_seconds'), 's'):>8}")
+    return 0
+
+
+def handle_slo(args, files, config):
+    """Render a daemon's /slo evaluation; exit 1 while any alert is
+    latched (scriptable: the smoke and a pager check share it)."""
+    slo = _fetch_json(args.url, "/slo")
+    if args.json:
+        print(json.dumps(slo, indent=2))
+        return 1 if slo.get("alerting") else 0
+    rows = slo.get("slos", [])
+    print(f"slo @ {args.url}: {len(rows)} objective(s), "
+          f"alerts={slo.get('alerts', [])}")
+    if rows:
+        width = max(len(r.get("slo", "")) for r in rows)
+        print(f"{'slo':<{width}}  {'objective':>9}  {'fast_burn':>9}  "
+              f"{'slow_burn':>9}  {'budget':<10} {'alert':<5}")
+        for r in rows:
+            burn = r.get("burn", {})
+            print(f"{r.get('slo', '?'):<{width}}  "
+                  f"{r.get('objective', 0.0):>9.3f}  "
+                  f"{burn.get('fast', 0.0):>9.3f}  "
+                  f"{burn.get('slow', 0.0):>9.3f}  "
+                  f"{'in-budget' if r.get('in_budget') else 'BURNING':<10} "
+                  f"{'YES' if r.get('alerting') else 'no':<5}")
+    return 1 if slo.get("alerting") else 0
+
+
+def handle_incident(args, files, config):
+    """List a daemon's incident bundles, or render one as the
+    human-readable autopsy (``service/recorder.py::render_autopsy``)."""
+    import time
+
+    if args.id is None:
+        index = _fetch_json(args.url, "/incidents")
+        if args.json:
+            print(json.dumps(index, indent=2))
+            return 0
+        rows = index.get("incidents", [])
+        print(f"incidents @ {args.url}: {len(rows)} bundle(s)")
+        for r in rows:
+            ts = r.get("captured_at")
+            when = (time.strftime("%Y-%m-%d %H:%M:%S",
+                                  time.localtime(ts)) if ts else "?")
+            print(f"  {r.get('id', '?')}  {when}  "
+                  f"[{r.get('trigger', '?')}] {r.get('reason', '')}")
+        return 0
+    inc_id = args.id
+    if inc_id == "latest":
+        rows = _fetch_json(args.url, "/incidents").get("incidents", [])
+        if not rows:
+            print("no incidents captured", file=sys.stderr)
+            return 1
+        inc_id = rows[-1]["id"]
+    bundle = _fetch_json(args.url, f"/incidents/{inc_id}")
+    if args.json:
+        print(json.dumps(bundle, indent=2))
+        return 0
+    from ..service.recorder import render_autopsy
+
+    print(render_autopsy(bundle), end="")
+    return 0
+
+
 def handle_scenario(args, files, config):
     from .scenariocmd import handle_scenario as _handle
 
@@ -1250,14 +1548,18 @@ HANDLERS = {
     "et-proving-key": handle_et_pk,
     "et-verifier": handle_et_verifier,
     "et-verify": handle_et_verify,
+    "fleet": handle_fleet,
+    "incident": handle_incident,
     "kzg-params": handle_kzg_params,
     "local-scores": lambda a, f, c: handle_scores(a, f, c, local=True),
     "obs": handle_obs,
     "profile": handle_profile,
+    "prove-worker": handle_prove_worker,
     "scenario": handle_scenario,
     "scores": lambda a, f, c: handle_scores(a, f, c, local=False),
     "serve": handle_serve,
     "show": handle_show,
+    "slo": handle_slo,
     "sparse-scores": handle_sparse_scores,
     "store": handle_store,
     "th-proof": handle_th_proof,
@@ -1271,7 +1573,9 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     try:
         files = config = None
-        if args.command not in ("profile", "obs"):  # no assets read
+        # the verbs that read no assets
+        if args.command not in ("profile", "obs", "fleet", "slo",
+                                "incident"):
             files = EigenFile(assets_dir(args.assets))
             config = _load_config(files)
         return HANDLERS[args.command](args, files, config) or 0

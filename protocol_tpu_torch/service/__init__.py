@@ -27,16 +27,26 @@ are the port's:
 - :class:`TrustService` (``daemon.py``) — the supervisor: threads,
   SIGTERM drain, fault injection (``faults.py``), and, given a state
   dir, the durable store (``store``: WAL, snapshots, proof artifacts;
-  formats shared with the reference byte for byte).
+  formats shared with the reference byte for byte). With
+  ``shard_proves`` the pool lends idle workers into a running prove's
+  work units, and with ``fabric`` external ``prove-worker`` processes
+  too (``zk/fabric.py``).
+- :class:`FollowerService` (``follower.py``) — the read replica
+  (``serve --follow``): bootstraps from the leader's snapshot, tails
+  its shipped WAL (``replication.py``), recovers the signers and
+  refreshes on its own device as the leader does, and serves
+  ``/scores``, ``/score/<addr>`` and the leader's ``/bundle``
+  read-only.
 
-Wired to the CLI as the ``serve`` verb plus ``store inspect|compact``
-and ``obs`` (``cli/main.py``). The follower replica (``serve --follow``)
-is not ported yet.
+Wired to the CLI as the ``serve`` verb (``--follow``), ``prove-worker``,
+``store inspect|compact``, ``obs`` and the operator verbs ``fleet``,
+``slo`` and ``incident`` (``cli/main.py``).
 """
 
 from .config import ServiceConfig
 from .daemon import TrustService
 from .faults import FaultInjector
+from .follower import FollowerService
 from .jobs import (
     ByteBudgetError,
     ProofJob,
@@ -53,6 +63,7 @@ __all__ = [
     "ByteBudgetError",
     "ChainTailer",
     "FaultInjector",
+    "FollowerService",
     "OpinionGraph",
     "ProofJob",
     "ProofJobQueue",

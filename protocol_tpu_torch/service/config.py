@@ -151,8 +151,7 @@ class ServiceConfig:
     queue_bytes: int = 4 << 20      # hard-503 ceiling on queued params
     proof_shape: str = "default"    # "default" (k=21 SRS) | "tiny" (k=20)
     transcript: str = "keccak"
-    # intra-prove sharding (opt-in; refused until ROADMAP A6b, as is
-    # the fabric below): 1 = a prove submitted to the pool
+    # intra-prove sharding (opt-in): 1 = a prove submitted to the pool
     # fans its independent work units (commit columns per engine
     # flush, host quotient row chunks, the two opening folds) out to
     # IDLE pool workers, with a deterministic merge point that keeps

@@ -126,14 +126,6 @@ class TrustService:
         state store — WAL, snapshots, proof artifacts, operator cache —
         omitted, the graph and proof history are memory-only and only
         the cursor survives a restart."""
-        if config.shard_proves or config.fabric:
-            # sharded proves (the pool's worker lending) and the
-            # cross-process fabric are not ported yet: refused before
-            # the state dir is touched
-            from .provers import refuse_unported
-
-            refuse_unported("sharded proves (serve --shard-proves / "
-                            "--fabric)")
         self.client = client
         self.config = config
         self.faults = faults or FaultInjector()
@@ -259,6 +251,7 @@ class TrustService:
             self._compact_wal(self.tailer.persisted_cursor)
         from .provers import (
             PROOF_PRIORITIES,
+            PROOF_SHARD_EXEMPT,
             make_provers,
             make_worker_env,
         )
@@ -275,6 +268,21 @@ class TrustService:
             provers = make_provers(self, files,
                                    shape_name=config.proof_shape,
                                    transcript=config.transcript)
+        # cross-process proving fabric (opt-in + needs durable state:
+        # the fabric directory IS the worker rendezvous substrate, and
+        # a memory-only daemon has no filesystem to share)
+        self.fabric = None
+        # filesystem-transport prove-workers drop their telemetry
+        # reports here (atomic rename); the observer thread sweeps it
+        self._telemetry_drop = (os.path.join(str(state_dir), "fabric",
+                                             "telemetry")
+                                if state_dir else None)
+        if config.fabric and state_dir:
+            from ..zk.fabric import FabricStore
+
+            self.fabric = FabricStore(
+                os.path.join(str(state_dir), "fabric"),
+                lease_ttl=config.fabric_lease_ttl, faults=self.faults)
         self.jobs = ProofWorkerPool(
             provers, capacity=config.queue_capacity, faults=self.faults,
             artifacts=self.store.artifacts if self.store else None,
@@ -282,7 +290,15 @@ class TrustService:
             priorities=PROOF_PRIORITIES,
             watermark=config.shed_watermark,
             queue_bytes=config.queue_bytes,
-            worker_env=make_worker_env(self))
+            worker_env=make_worker_env(self),
+            # every prover kind except the capture window is shardable
+            # (PROOF_SHARD_EXEMPT) — injected test registries included,
+            # so the smoke's deterministic provers shard like the real
+            # eigentrust/threshold ones
+            shard_kinds=(set(provers) - PROOF_SHARD_EXEMPT
+                         if config.shard_proves else None),
+            shard_cap=config.shard_cap,
+            fabric=self.fabric)
         if self.store is not None:
             rehydrated = self.jobs.rehydrate()
             if rehydrated:
@@ -752,6 +768,18 @@ class TrustService:
         # alert on (ptpu_score_freshness_seconds)
         trace.gauge("score_freshness_seconds").set(
             self.score_freshness_seconds())
+        if self.fabric is not None:
+            # fabric fleet state is filesystem state, not samples —
+            # refreshed per scrape like freshness above. A stuck lease
+            # age (sawtooth never resetting) is the SIGKILLed-worker
+            # signature before leases_expired even moves.
+            try:
+                trace.gauge("fabric_workers").set(
+                    float(self.fabric.workers_live()))
+                trace.gauge("fabric_lease_age_seconds").set(
+                    float(self.fabric.oldest_lease_age()))
+            except Exception:  # noqa: BLE001 - scrape must not 500
+                pass
         out = {
             "service.up": 0.0 if self.draining else 1.0,
             "service.queue_depth": float(self.jobs.depth()),
@@ -796,8 +824,8 @@ class TrustService:
                 "queue_depth": self.jobs.depth(),
                 "graph_revision": self.graph.revision,
                 "score_revision": self.refresher.table.revision,
-                # no proving fabric until ROADMAP A6b
-                "fabric_workers": 0,
+                "fabric_workers": (self.fabric.workers_live()
+                                   if self.fabric is not None else 0),
                 "followers": (len(self.repl_source.status()
                                   .get("followers", []))
                               if self.repl_source is not None else 0),
@@ -860,9 +888,9 @@ class TrustService:
             force=(trigger == "operator"))
 
     def _observe(self, stop: threading.Event) -> None:
-        """The observer thread: refresh the fleet and device-memory
-        gauges, and tick the SLO engine over the fleet-wide
-        (sentinel-honest) gauge view."""
+        """The observer thread: sweep file-dropped worker telemetry,
+        refresh the fleet and device-memory gauges, and tick the SLO
+        engine over the fleet-wide (sentinel-honest) gauge view."""
         from .recorder import update_device_memory_gauges
         from .telemetry import fleet_gauge_view, update_fleet_gauges
 
@@ -872,6 +900,8 @@ class TrustService:
         while not stop.is_set():
             self.beats.beat("ptpu-observer")
             try:
+                if self._telemetry_drop is not None:
+                    self.telemetry.sweep_dir(self._telemetry_drop)
                 update_fleet_gauges(self.telemetry)
                 update_device_memory_gauges()
                 freshness = self.score_freshness_seconds()

@@ -38,10 +38,27 @@ single driver, so an 8-device box minted the same proofs/hour as a
   rehydrates every one of them as ``failed: lost`` and never reissues
   an id (``rehydrate``);
 
-- the reference's worker lending (intra-prove shards) and its
-  cross-process fabric are not ported yet (ROADMAP A6b); a worker's
-  ``lent_to``/``shards_run`` and the pool's shard fields stay on
-  ``GET /status`` with their idle values.
+- **worker lending (intra-prove shards)**: a job whose kind is in
+  ``shard_kinds`` runs under a shard runner (``zk/shards.py``), so the
+  prove's independent work units — commit columns per engine flush,
+  host quotient row chunks, the two opening folds — land on the pool's
+  shard queue and IDLE workers execute them before stealing whole
+  jobs. Lending never disturbs a worker's own scheduling state: its
+  queue, affinity residency and kind rotation are untouched; only
+  ``lent_to`` (visible on ``GET /status``) marks the borrow. The
+  merge point is deterministic (results absorbed in submission order;
+  proofs byte-identical to a direct ``prove_fast`` — tested), and the
+  admission/steal/rehydrate semantics extend naturally: sub-jobs
+  bypass admission (their parent was admitted, and a pool busy enough
+  to shed has no idle workers to lend), the shard queue IS the steal
+  surface for sub-jobs (claim-from-shared-queue, FIFO), and shards are
+  never persisted — a daemon SIGKILLed mid-sharded-prove rehydrates
+  exactly ONE ``failed: lost`` job. Fan-out per stage is
+  ``min(shard_cap, workers)``; the submitting worker always claims
+  whatever no one lent a hand for, so progress never depends on idle
+  capacity. ``ptpu_prove_shards_total{stage}`` counts executed units,
+  ``ptpu_prove_shard_wait_seconds{stage}`` their queue wait, and
+  shard spans carry ``worker=`` via the executing thread's context.
 
 Everything is visible: ``ptpu_proof_pool_depth`` /
 ``_worker_depth{worker}`` / ``_queued_bytes`` / ``_workers`` gauges,
@@ -289,6 +306,170 @@ class PoolWorker:
         }
 
 
+class _ShardRunner:
+    """Worker-lending shard runner for ONE running job (duck-types the
+    ``zk/shards.py`` runner contract; installed by ``_run_job`` around
+    shardable prover calls). ``dispatch`` parks units on the pool's
+    shared shard queue and wakes idle workers; ``rendezvous`` claims
+    whatever nobody lent a hand for — the submitting worker is always
+    a sufficient executor, so a fully-busy pool degenerates to the
+    unsharded serial order — waits for every claimed unit, and
+    re-raises the first error in submission order.
+
+    Sub-jobs deliberately bypass admission: their parent job was
+    admitted (and still holds exactly one depth slot), and a pool deep
+    enough to shed has no idle workers to lend anyway. They are never
+    persisted: SIGKILL mid-sharded-prove rehydrates ONE failed:lost
+    job, not N sub-records.
+
+    Cross-process fabric (``zk/fabric.py``): when the pool carries a
+    fabric with live external ``prove-worker`` registrations, dispatch
+    ALSO publishes each unit's portable form — external processes race
+    the in-process lenders for the same units. The rendezvous prefers a
+    valid remote result (applied on the submitting thread, in
+    submission order, so placement never moves a transcript byte),
+    waits briefly on a LIVE external lease, and claims anything
+    unleased or lease-lapsed for local execution — a SIGKILLed fleet
+    degrades to the serial in-process order, never a hang (the lease
+    TTL bounds every wait)."""
+
+    def __init__(self, pool: "ProofWorkerPool", job: ProofJob,
+                 fanout: int):
+        self.pool = pool
+        self.job = job
+        self.fanout = fanout
+
+    def dispatch(self, units: list) -> None:
+        fabric = self.pool.fabric
+        if fabric is not None:
+            # publish BEFORE the units become claimable in-process: a
+            # local run frees commit scalars as it finishes, and the
+            # payload build must see pristine inputs. Best-effort and
+            # gated on live external workers — with none registered
+            # there is no serialization tax at all.
+            try:
+                live = fabric.workers_live()
+            except Exception:  # noqa: BLE001 - fabric is optional
+                live = 0
+            if live > 0:
+                for u in units:
+                    if u.portable is None:
+                        continue
+                    try:
+                        fabric.publish(self.job.job_id, u)
+                    except Exception:  # noqa: BLE001 - local path wins
+                        u.fabric_id = None
+        with self.pool._lock:
+            for u in units:
+                u.job_id = self.job.job_id
+                self.pool._shards.append(u)
+            self.pool._wake.notify_all()
+
+    def _claim(self, u) -> bool:
+        """Claim ``u`` for this thread (off the lending deque); False
+        when a lent worker beat us to it."""
+        with self.pool._lock:
+            if u.claimed:
+                return False
+            u.claimed = True
+            try:
+                self.pool._shards.remove(u)
+            except ValueError:  # pragma: no cover - already
+                pass            # off the queue (racing pop)
+            return True
+
+    def _apply_remote(self, unit, remote) -> None:
+        """Fold an external worker's result into the unit on the
+        submitting thread. Emits the same ``prove.shard`` span/counter
+        the local run would — under the EXTERNAL worker's name, so
+        `obs --trace-id <job>` shows which process computed the unit.
+        ANY decode/apply failure falls back to the local closure:
+        execution is deterministic, so the overwrite is byte-safe."""
+        obj, worker_name, remote_wall = remote
+        t0 = time.perf_counter()
+        try:
+            with contextlib.ExitStack() as stack:
+                if unit.trace_ids:
+                    stack.enter_context(
+                        trace.context(trace_ids=unit.trace_ids))
+                stack.enter_context(trace.worker_context(worker_name))
+                with trace.span("prove.shard", stage=unit.stage,
+                                index=unit.index, remote=1):
+                    trace.counter("prove_shards").inc(stage=unit.stage)
+                    unit.result = unit.portable.apply(obj)
+            trace.counter("fabric_units").inc(stage=unit.stage)
+            # source="local" is THIS thread's decode+apply wall;
+            # source="remote" is the worker's own measured execution
+            # wall carried back in the result frame — the honest
+            # remote sample (absent only for older workers' frames)
+            trace.histogram("fabric_unit_seconds").observe(
+                time.perf_counter() - t0, stage=unit.stage,
+                source="local")
+            if remote_wall is not None:
+                trace.histogram("fabric_unit_seconds").observe(
+                    float(remote_wall), stage=unit.stage,
+                    source="remote")
+            unit.done.set()
+        except BaseException:  # noqa: BLE001 - remote is best-effort
+            trace.event("fabric.apply_failed", unit=unit.fabric_id,
+                        stage=unit.stage)
+            unit.run()
+
+    def rendezvous(self, units: list) -> None:
+        pool = self.pool
+        fabric = pool.fabric if any(u.fabric_id is not None
+                                    for u in units) else None
+        while True:
+            progress = False
+            waiting = False
+            for u in units:
+                if u.done.is_set() or u.claimed:
+                    continue
+                remote = None
+                lease = "none"
+                if fabric is not None and u.fabric_id is not None:
+                    try:
+                        remote = fabric.try_result(u.fabric_id)
+                        if remote is None:
+                            lease = fabric.lease_state(u.fabric_id)
+                    except Exception:  # noqa: BLE001 - run locally
+                        remote, lease = None, "none"
+                if remote is None and lease == "live":
+                    # an external worker owns the lease: give it its
+                    # TTL — a dead worker's lease lapses and the next
+                    # pass reclaims the unit, so this never hangs
+                    waiting = True
+                    continue
+                if not self._claim(u):
+                    continue  # a lent worker took it meanwhile
+                if remote is not None:
+                    self._apply_remote(u, remote)
+                else:
+                    if lease == "expired":
+                        trace.counter("fabric_leases_expired").inc()
+                        with contextlib.suppress(Exception):
+                            fabric.clear_lease(u.fabric_id)
+                    u.run()
+                progress = True
+            if not waiting:
+                break
+            if not progress:
+                time.sleep(pool.fabric_poll)
+        for u in units:
+            # claimed by a lent worker: the worker always completes a
+            # claimed unit (the claim and the run are not separated by
+            # a stop check), so this join cannot hang on hard_kill
+            u.done.wait()
+        if fabric is not None:
+            with contextlib.suppress(Exception):
+                for u in units:
+                    if u.fabric_id is not None:
+                        fabric.retire(u.fabric_id)
+        err = next((u.error for u in units if u.error is not None), None)
+        if err is not None:
+            raise err
+
+
 class ProofWorkerPool:
     """Bounded multi-worker pool + MRU result history.
 
@@ -314,7 +495,11 @@ class ProofWorkerPool:
                  watermark: int = 0,
                  queue_bytes: int = 4 << 20,
                  resident_keys: int = 2,
-                 worker_env=None):
+                 worker_env=None,
+                 shard_kinds=None,
+                 shard_cap: int = 4,
+                 fabric=None,
+                 fabric_poll: float = 0.05):
         self.provers = dict(provers)
         self.capacity = capacity
         self.artifacts = artifacts
@@ -326,6 +511,18 @@ class ProofWorkerPool:
         self.queue_bytes = int(queue_bytes)
         self.resident_keys = max(1, int(resident_keys))
         self.worker_env = worker_env
+        # intra-prove sharding: kinds whose jobs run under a worker-
+        # lending shard runner (None/empty = off: whole jobs only);
+        # per-stage fan-out is min(shard_cap, workers)
+        self.shard_kinds = frozenset(shard_kinds or ())
+        self.shard_cap = int(shard_cap)
+        self._shards: deque = deque()  # pending ShardUnits (all jobs)
+        # cross-process fabric (zk/fabric.py FabricStore or None):
+        # dispatch publishes portable units when external prove-worker
+        # processes are registered; fabric_poll paces the rendezvous's
+        # wait on a live external lease
+        self.fabric = fabric
+        self.fabric_poll = float(fabric_poll)
         devices = _detect_devices()
         # clamp: a negative/zero explicit count must not build an empty
         # pool (healthy daemon, every submit crashing in _route)
@@ -388,9 +585,13 @@ class ProofWorkerPool:
                 w.queued, worker=w.name)
 
     def pool_status(self) -> dict:
-        """Per-worker rows + admission state for ``GET /status``. The
-        shard and fabric fields keep the reference's schema; sharded
-        proves wait for ROADMAP A6b, so they read empty here."""
+        """Per-worker rows + admission state for ``GET /status``."""
+        fabric_row = None
+        if self.fabric is not None:
+            try:  # outside the lock: status() walks the fabric dir
+                fabric_row = self.fabric.status()
+            except Exception:  # noqa: BLE001
+                fabric_row = {"error": "unreadable"}
         with self._lock:
             return {
                 "workers": [w.status_row() for w in self.workers],
@@ -401,9 +602,9 @@ class ProofWorkerPool:
                 "avg_run_seconds": round(self._avg_run_s, 3),
                 "shed": {f"{kind}:{tier}": n
                          for (kind, tier), n in sorted(self.shed.items())},
-                "shard_kinds": [],
-                "shards_pending": 0,
-                "fabric": None,
+                "shard_kinds": sorted(self.shard_kinds),
+                "shards_pending": len(self._shards),
+                "fabric": fabric_row,
             }
 
     # --- admission --------------------------------------------------------
@@ -673,6 +874,7 @@ class ProofWorkerPool:
         while True:
                 if beats is not None:
                     beats.beat(f"ptpu-proof-{w.name}")
+                unit = None
                 with self._lock:
                     if self._killed:
                         # hard_kill: the backlog must stay QUEUED (a
@@ -680,36 +882,89 @@ class ProofWorkerPool:
                         # graceful drain finishes pending work
                         return
                     job = w.pop_next()
-                    if job is None:
+                    if job is None and self._shards:
+                        # worker lending: before committing an idle
+                        # worker to a whole stolen job, hand it a shard
+                        # of a RUNNING prove — the unit is sub-second
+                        # and unblocks a client already mid-wait. The
+                        # worker's own queue always wins over lending
+                        # (its jobs carry their own latency budget).
+                        unit = self._shards.popleft()
+                        unit.claimed = True
+                        w.lent_to = unit.job_id
+                    elif job is None:
                         job = self._steal(w)
-                    if job is None:
+                    if job is None and unit is None:
                         if self._stop:
                             return
                         self._wake.wait(timeout=0.5)
                         continue
-                    # same lock hold as the pop: drain() must never
-                    # observe the job off a queue but not running
-                    job.status = "running"
-                    job.started_at = time.time()
-                    job.worker = w.name
-                    w.running = job
-                    self._queued_bytes -= job._bytes
-                    if job.cache_key is not None:
-                        # hit = this worker's prover state serves the
-                        # job warm (exact key or same-prover prefix)
-                        if self._holds(w, job.cache_key):
-                            w.affinity_hits += 1
-                            trace.counter("proof_pool_affinity").inc(
-                                result="hit")
-                        else:
-                            w.affinity_misses += 1
-                            trace.counter("proof_pool_affinity").inc(
-                                result="miss")
-                    # keep the depth honest on the DRAIN side too: a
-                    # submit-only gauge would report a stale backlog
-                    # forever after the queues empty
-                    self._record_depth()
+                    if job is not None:
+                        # same lock hold as the pop: drain() must never
+                        # observe the job off a queue but not running
+                        job.status = "running"
+                        job.started_at = time.time()
+                        job.worker = w.name
+                        w.running = job
+                        self._queued_bytes -= job._bytes
+                        if job.cache_key is not None:
+                            # hit = this worker's prover state serves
+                            # the job warm (exact key or same-prover
+                            # prefix)
+                            if self._holds(w, job.cache_key):
+                                w.affinity_hits += 1
+                                trace.counter("proof_pool_affinity").inc(
+                                    result="hit")
+                            else:
+                                w.affinity_misses += 1
+                                trace.counter("proof_pool_affinity").inc(
+                                    result="miss")
+                        # keep the depth honest on the DRAIN side too:
+                        # a submit-only gauge would report a stale
+                        # backlog forever after the queues empty
+                        self._record_depth()
+                if unit is not None:
+                    # outside the lock: the unit's MSM/quotient compute
+                    # is milliseconds-to-seconds of native work. A
+                    # claimed unit ALWAYS runs to completion — there is
+                    # no stop check between claim and run, so the
+                    # rendezvous join can never hang on a kill.
+                    try:
+                        unit.run()
+                    finally:
+                        with self._lock:
+                            w.lent_to = None
+                            w.shards_run += 1
+                    continue
                 self._run_job(w, job)
+
+    def _fabric_workers(self) -> int:
+        """Live external prove-worker registrations (0 without a
+        fabric). Best-effort: a fabric read failure must never stall
+        the scheduler — it just means no external fan-out this pass."""
+        if self.fabric is None:
+            return 0
+        try:
+            return int(self.fabric.workers_live())
+        except Exception:  # noqa: BLE001
+            return 0
+
+    def _shard_scope(self, job: ProofJob):
+        """The worker-lending runner for a shardable job's prover call
+        (no-op context otherwise). Imported lazily: a pool with
+        sharding off — every injected-prover test — never
+        touches the zk layer. Fan-out 1 (single worker, no external
+        fleet) installs nothing: splitting work for no one costs slice
+        copies. External fabric workers COUNT toward the fan-out — a
+        1-worker daemon with 4 registered prove-workers must fan past
+        1 or the fleet never receives a unit."""
+        fanout = min(self.shard_cap,
+                     len(self.workers) + self._fabric_workers())
+        if job.kind not in self.shard_kinds or fanout <= 1:
+            return contextlib.nullcontext()
+        from ..zk.shards import shard_scope
+
+        return shard_scope(_ShardRunner(self, job, fanout))
 
     def _run_job(self, w: PoolWorker, job: ProofJob) -> None:
         # queue wait vs prove time: the two halves of a client's
@@ -726,7 +981,8 @@ class ProofWorkerPool:
             # the worker that executed it.
             with trace.context(trace_id=job.job_id):
                 with trace.span("service.proof", kind=job.kind):
-                    result = self.provers[job.kind](job.params)
+                    with self._shard_scope(job):
+                        result = self.provers[job.kind](job.params)
             job.result = result
             job.status = "done"
         except Exception as e:  # noqa: BLE001 - job isolation: one

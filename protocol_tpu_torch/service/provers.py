@@ -29,15 +29,14 @@ from ..utils.errors import EigenError
 # the byte-budget ceiling. Unknown (test-injected) kinds default to 0.
 PROOF_PRIORITIES = {"profile": 0, "threshold": 1, "eigentrust": 2}
 
-# what sharded proves (the pool's worker lending) and the proving
-# fabric need and the port does not have yet
-UNPORTED = ("the rest of the prover stack, which is not ported yet "
-            "(ROADMAP A6b)")
-
-
-def refuse_unported(what: str):
-    """Raise the one error every not-yet-ported prover surface gives."""
-    raise EigenError("config_error", f"{what} needs {UNPORTED}")
+# kinds that never shard under config.shard_proves: the profile
+# capture window holds a device trace open, not prove stages — there
+# is nothing to fan out, and lending workers into a capture window
+# would only pollute its timeline. Every real prove kind (and any
+# injected registry kind) is shardable; the prove paths degrade to
+# fully-inline execution when no idle worker lends a hand, so
+# shardability is an opportunity, never a requirement.
+PROOF_SHARD_EXEMPT = frozenset({"profile"})
 
 
 def make_worker_env(_service=None):

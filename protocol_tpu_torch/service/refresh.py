@@ -408,7 +408,7 @@ class ScoreRefresher:
 
         record_refresh_scope("rebuild")
         return self._publish(addresses, scores, n, revision, iters,
-                             delta, cold)
+                             delta, cold, edits)
 
     def _warm_vector(self, n, valid):
         from ..ops.converge import warm_start_scores
@@ -442,14 +442,16 @@ class ScoreRefresher:
         trace.histogram("refresh_seconds").observe(
             time.perf_counter() - t0, mode="cold" if cold else "warm")
         return self._publish(addresses, scores, n, revision, iters,
-                             delta, cold)
+                             delta, cold, edits)
 
     def _publish(self, addresses, scores, n, revision, iters, delta,
-                 cold) -> ScoreTable:
+                 cold, edits) -> ScoreTable:
         self.refreshes += 1
         if cold:
             self.cold_refreshes += 1
-            self.graph.mark_cold()
+            # only the ``edits`` this refresh's cut saw: those applied
+            # while it converged still count toward the next one
+            self.graph.mark_cold(edits)
         else:
             self.warm_iterations += int(iters)
         self.table = ScoreTable(addresses, np.asarray(scores)[:n],

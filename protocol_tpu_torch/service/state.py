@@ -189,9 +189,16 @@ class OpinionGraph:
             trace.metric("service.invalid_attestations", self.invalid)
         return changed
 
-    def mark_cold(self) -> None:
+    def mark_cold(self, edits: int | None = None) -> None:
+        """A cold refresh covered ``edits`` of the edits since the last
+        one (the count its cut read; None: all of them). The refresher
+        passes its count: the reference's reset to 0 forgets the edits
+        applied while the refresh ran, so the next refresh warm-starts
+        although ``cold_edit_fraction`` asks for a cold one."""
         with self._lock:
-            self.edits_since_cold = 0
+            self.edits_since_cold = (
+                0 if edits is None
+                else max(0, self.edits_since_cold - int(edits)))
 
     # --- durability (``store`` snapshots) ------------------------
     def restore_state(self, addrs, edges, revision: int,

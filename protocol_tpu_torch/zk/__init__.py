@@ -24,7 +24,9 @@ Modules
   recursive aggregation (native + in-circuit).
 - ``evm`` / ``yul``: generated Yul on-chain verifier + the in-repo
   executor for it.
+- ``fabric``: the cross-process proving fabric (work units published
+  under a daemon's state dir, executed by ``prove-worker`` processes).
 
-Not ported yet (ROADMAP A6b): the cross-process fabric, the device MSM
-and the EdDSA, Rescue and Merkle chips.
+Not ported yet (ROADMAP A6b): the device MSM and the EdDSA, Rescue and
+Merkle chips.
 """

@@ -283,7 +283,8 @@ class CommitEngine:
             return
         shards.shard_map(
             "commit",
-            [lambda p=p: self._commit_group(key, p) for p in parts])
+            [lambda p=p: self._commit_group(key, p) for p in parts],
+            portables=[self._commit_portable(key, p) for p in parts])
 
     def _fetch_loop(self, fetches: list, ctx_ids: tuple,
                     worker: str | None) -> None:
@@ -345,8 +346,12 @@ class CommitEngine:
         self._finish_group(group)
 
     def _finish_group(self, group: list) -> None:
-        """The blinds tail of ``_commit_group``: frees scalars and folds
-        each item's Z_H-blinding τ-basis correction into its point."""
+        """The blinds tail, factored so the cross-process apply path
+        (``_commit_portable``) and the local ``_commit_group`` share
+        one copy: frees scalars and folds each item's Z_H-blinding
+        τ-basis correction into its point. Blinds are applied HERE, on
+        the submitting side, never on an external worker — the wire
+        carries no values derived from the blinding stream."""
         n = 1 << self.params.k
         for it in group:
             it.scalars = None  # fetched chunks can be ~32 MB each
@@ -358,6 +363,42 @@ class CommitEngine:
                 it.point = g1_add(it.point,
                                   g1_mul(self.params.g1_powers[i],
                                          (R - b) % R))
+
+    def _commit_portable(self, key: tuple, group: list):
+        """The cross-process face of one grouped commit part (see
+        ``zk/fabric.py``): payload = the stacked scalar columns plus
+        the base limbs as a content-addressed SHARED blob (every commit
+        unit of a prove references the same bases — they serialize once
+        per prove, not per unit); apply = set the returned affine
+        points and run the local blinds tail. None when the unit can't
+        travel (device seam / serial oracle path)."""
+        if self.device or not self.batching:
+            return None
+        from .fabric import FabricError, PortableUnit, Shared
+
+        def build():
+            # np.stack copies — the items' own scalar arrays are never
+            # mutated by serialization, so a local fallback run after a
+            # failed remote apply sees pristine inputs
+            cols = np.stack([np.ascontiguousarray(it.scalars)
+                             for it in group])
+            return {"cols": cols, "bases": Shared(self._bases(*key)),
+                    "bases_id": key[0], "length": key[1]}
+
+        def apply(res):
+            pts = res.get("points") if isinstance(res, dict) else None
+            if pts is None or len(pts) != len(group):
+                raise FabricError("commit result shape mismatch")
+            trace.histogram("commit_batch_size",
+                            buckets=trace.COMMIT_BATCH_BUCKETS).observe(
+                float(len(group)), bases=key[0])
+            for it, pt in zip(group, pts):
+                it.point = (None if pt is None
+                            else (int(pt[0]), int(pt[1])))
+            self._finish_group(group)
+            return None
+
+        return PortableUnit("commit", build, apply)
 
 
 class FlushHandle:
@@ -398,7 +439,8 @@ class FlushHandle:
                     (lambda key=key, p=p:
                      self.eng._commit_group(key, p)),
                     len(units),
-                    trace_ids=trace.current_trace_ids()))
+                    trace_ids=trace.current_trace_ids(),
+                    portable=self.eng._commit_portable(key, p)))
             self._covered.update(chunk)
         runner.dispatch(units)
         self._runner = runner

@@ -850,6 +850,32 @@ def _prove_fast_host(params, pk, cs, public_inputs, randint,
                 sigma_e[:, a:b], pi_e[a:b], xs[a:b], zh_inv[a:b],
                 l0[a:b], beta, gamma, beta_lk, alpha, pk.shifts)
 
+        def _quotient_portable(a: int, b: int):
+            # lazy payload: only materialized if the runner publishes
+            # the unit to the cross-process fabric (external workers
+            # registered) — the in-process path never pays the copy
+            from .fabric import PortableUnit
+
+            def build(a=a, b=b):
+                return {
+                    "arrays": {
+                        "wires": wires_e[:, a:b], "z": z_e[a:b],
+                        "zw": zw_e[a:b], "m": m_e[a:b],
+                        "phi": phi_e[a:b], "phiw": phiw_e[a:b],
+                        "uv": uv_e[:, a:b], "fixed": fixed_e[:, a:b],
+                        "sigma": sigma_e[:, a:b], "pi": pi_e[a:b],
+                        "xs": xs[a:b], "zh_inv": zh_inv[a:b],
+                        "l0": l0[a:b],
+                    },
+                    "scalars": {
+                        "beta": str(beta), "gamma": str(gamma),
+                        "beta_lk": str(beta_lk), "alpha": str(alpha),
+                        "shifts": [str(s) for s in pk.shifts],
+                    },
+                }
+
+            return PortableUnit("quotient", build)
+
         fanout = (shard_fanout()
                   if "quotient" in SHARDABLE_STAGES["host"] else 1)
         if fanout > 1:
@@ -857,7 +883,8 @@ def _prove_fast_host(params, pk, cs, public_inputs, randint,
             t_ext = np.concatenate(shard_map(
                 "quotient",
                 [lambda a=a, b=b: _quotient_rows(a, b)
-                 for a, b in ranges]))
+                 for a, b in ranges],
+                portables=[_quotient_portable(a, b) for a, b in ranges]))
         else:
             t_ext = _quotient_rows(0, ext_n)
     del wires_e, zw_e, m_e, phiw_e, uv_e, fixed_e, sigma_e, pi_e, xs, zh_inv
@@ -936,9 +963,19 @@ def _prove_fast_host(params, pk, cs, public_inputs, randint,
         # the two witness folds are independent whole units (native
         # field kernels are stateless) — the opening-side shard pair
         if "openings" in SHARDABLE_STAGES["host"]:
+            from .fabric import PortableUnit
+
+            def _fold_portable(polys, at):
+                return PortableUnit("open_fold", lambda: {
+                    "polys": list(polys), "at": str(at),
+                    "v": str(v_ch)})
+
             q_x, q_wx = shard_map("open_fold", [
                 lambda: open_group(all_polys, zeta),
                 lambda: open_group([z_coeffs, phi_coeffs], zeta_w),
+            ], portables=[
+                _fold_portable(all_polys, zeta),
+                _fold_portable([z_coeffs, phi_coeffs], zeta_w),
             ])
         else:  # pragma: no cover - stage-set edit seam
             q_x = open_group(all_polys, zeta)

@@ -6,10 +6,10 @@ worker); a single flagship prove still runs every commit column,
 quotient chunk and opening fold on one worker. This module is the
 zk-layer half of the intra-prove fabric: a prove declares its
 independent work units (:func:`shard_map`), and whatever runner is
-installed for the current thread fans them out — the reference's proof
-pool installs a worker-lending runner so idle workers execute shards
-of a running prove (the port's pool has none yet, ROADMAP A6b); with
-no runner installed every unit runs inline, which is
+installed for the current thread fans them out — the proof pool
+installs a worker-lending runner (``service/pool.py``) so idle workers
+execute shards of a running prove; with no runner installed every unit
+runs inline, which is
 byte-for-byte the pre-sharding behavior.
 
 The ordering contract (the ONLY invariant the transcript needs):
@@ -77,10 +77,10 @@ class ShardUnit:
         self.claimed = False
         self.done = threading.Event()
         self.submitted_at = time.perf_counter()
-        # cross-process face: the reference's zk/fabric.py publishes a
-        # PortableUnit here so an external prove-worker can run it. The
-        # port has no fabric yet (ROADMAP A6b): its units pass None and
-        # stay thread-only.
+        # cross-process face (zk/fabric.py): a PortableUnit the runner
+        # MAY publish so an external prove-worker can execute this unit;
+        # None keeps the unit thread-only. fabric_id is stamped by the
+        # fabric store at publish time.
         self.portable = portable
         self.fabric_id = None
 
@@ -147,9 +147,10 @@ def shard_map(stage: str, fns: list, portables: list | None = None) -> list:
     noise, no threading.
 
     ``portables`` (parallel to ``fns``, entries may be None) gives
-    units a serializable face for a cross-process fabric. The port has
-    none yet (ROADMAP A6b) and passes no portables. Results merge in
-    submission order — placement never moves a byte."""
+    units a serializable face: when the pool has external fabric
+    workers registered, a runner may publish those units over
+    ``zk/fabric.py`` so another PROCESS executes them. Results still
+    merge in submission order — placement never moves a byte."""
     runner = current_runner()
     if runner is None or len(fns) <= 1:
         return [fn() for fn in fns]

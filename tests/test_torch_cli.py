@@ -71,6 +71,16 @@ def test_parser_accepts_the_ported_verbs_and_no_other():
         ("profile", ["--workload", "refresh"]),
         ("update", ["--chain-id", "1", "--node-url", "memory"]),
         ("serve", ["--port", "0", "--state-dir", "st", "--device", "cpu"]),
+        ("serve", ["--follow", "http://127.0.0.1:1", "--device", "cpu"]),
+        ("serve", ["--shard-proves", "1", "--fabric", "1",
+                   "--fabric-lease-ttl", "2", "--device", "cpu"]),
+        ("prove-worker", ["--state-dir", "st", "--name", "fw0", "--poll",
+                          "0.02", "--lease-ttl", "5", "--max-units", "3",
+                          "--idle-exit", "1"]),
+        ("prove-worker", ["--url", "http://127.0.0.1:1"]),
+        ("fleet", ["--url", "http://127.0.0.1:1", "--json"]),
+        ("slo", ["--url", "http://127.0.0.1:1"]),
+        ("incident", ["--url", "http://127.0.0.1:1", "--id", "latest"]),
         ("store", ["inspect", "--state-dir", "st"]),
         ("store", ["compact"]),
         ("obs", ["trace.jsonl", "--trace-id", "abc"]),
@@ -88,7 +98,7 @@ def test_parser_accepts_the_ported_verbs_and_no_other():
         ("th-verify", []),
     ]:
         assert parser.parse_args([verb, *extra]).command == verb
-    for verb in ("fleet", "prove-worker"):
+    for verb in ("fleet", "slo", "incident"):  # --url is required
         with pytest.raises(SystemExit):
             parser.parse_args([verb])
     with pytest.raises(SystemExit):  # the reference's backend names
@@ -480,13 +490,58 @@ def test_profile_daemon_workload_captures_on_a_live_daemon(tmp_path,
 
 
 def test_serve_refuses_follow_until_the_follower_is_ported(tmp_path,
-                                                           capsys):
+                                                           capsys,
+                                                           monkeypatch):
+    """``serve --follow`` runs the read replica: without a card and
+    without ``--device cpu`` it exits 1 naming the flag before it
+    touches the state dir; with ``--device cpu`` it runs as its own
+    process, bootstraps from a live port leader, serves the leader's
+    scores read-only and drains to exit 0 on SIGTERM."""
+    from protocol_tpu_torch.client import Client, ClientConfig
+    from protocol_tpu_torch.service import ServiceConfig, TrustService
+
     assets = tmp_path / "assets"
-    assert port_main(["--assets", str(assets), "serve", "--device", "cpu",
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert port_main(["--assets", str(assets), "serve",
                       "--follow", "http://127.0.0.1:1"]) == 1
     err = capsys.readouterr().err
-    assert "--follow" in err and "A4" in err
+    assert "no CUDA device" in err and "--device cpu" in err
     assert not (assets / "service-state").exists()
+    leader = TrustService(
+        Client(ClientConfig(), M2, device="cpu"), ServiceConfig(port=0),
+        str(tmp_path / "cursor"), provers={"echo": lambda p: p},
+        state_dir=str(tmp_path / "leader-state"))
+    url = leader.start()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "protocol_tpu_torch.cli", "--assets",
+         str(assets), "serve", "--follow", url, "--port", "0",
+         "--device", "cpu"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT),
+                 PTPU_SERVE_POLL_INTERVAL="0.05"), cwd=tmp_path)
+    try:
+        line = proc.stdout.readline()
+        assert "FOLLOWER listening on http://" in line, proc.stderr.read()
+        assert "device: cpu" in line
+        furl = line.split("listening on ")[1].split()[0]
+        deadline = time.monotonic() + 30
+        while True:
+            with urllib.request.urlopen(furl + "/status", timeout=5) as r:
+                status = json.loads(r.read())
+            if status["repl"]["cursor"] is not None:
+                break
+            assert time.monotonic() < deadline, status
+            time.sleep(0.05)
+        assert status["role"] == "follower" and status["repl"]["leader"] == url
+        assert (assets / "service-state").is_dir()
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=30)
+        assert proc.returncode == 0 and "follower drained" in out, err
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        assert leader.shutdown() is True
 
 
 def test_threshold_proof_verbs_need_the_card_or_device_cpu(tmp_path,

@@ -82,6 +82,8 @@ def test_port_imports_neither_jax_nor_reference():
               "protocol_tpu_torch.service.bundle",
               "protocol_tpu_torch.service.http_api",
               "protocol_tpu_torch.service.daemon",
+              "protocol_tpu_torch.service.follower",
+              "protocol_tpu_torch.zk.fabric",
               "protocol_tpu_torch.native.prover",
               "protocol_tpu_torch.ops.fieldops2",
               "protocol_tpu_torch.ops.ntt_tpu",

@@ -784,8 +784,10 @@ def test_routed_plan_cost_is_the_sweeps_analytic_row(tmp_path):
 
 def test_prover_backed_surfaces_name_the_missing_prover(tmp_path,
                                                        monkeypatch):
-    """``shard_proves``/``fabric`` are refused before the state dir is
-    touched, each naming ROADMAP A6b; the
+    """``shard_proves`` makes every kind but the capture window
+    shardable; ``fabric`` with a state dir builds the fabric under
+    ``<state-dir>/fabric`` (no state dir, no fabric), as the
+    reference's daemon does. The
     default registry's ``eigentrust`` kind resolves to the port's
     ``zk.api.generate_et_proof`` (stubbed here: no prove) with the
     cached artifact bytes, the served shape and the job's device."""
@@ -794,14 +796,29 @@ def test_prover_backed_surfaces_name_the_missing_prover(tmp_path,
     from protocol_tpu_torch.cli.fs import EigenFile
     from protocol_tpu_torch.service.provers import make_provers
     from protocol_tpu_torch.zk import api as port_api
+    from protocol_tpu_torch.zk.fabric import FabricStore
 
     client = Client(ClientConfig(), MNEMONIC, device="cpu")
-    for knobs in ({"shard_proves": 1}, {"fabric": 1}):
-        with pytest.raises(EigenError, match="A6b"):
-            TrustService(client, ServiceConfig(port=0, **knobs),
-                         str(tmp_path / "cursor"),
-                         state_dir=str(tmp_path / "state"))
-    assert not (tmp_path / "state").exists()
+    registry = {"echo": lambda p: p, "profile": lambda p: p}
+    for knobs, state, kinds, fabric in (
+            ({"shard_proves": 1}, "s1", {"echo"}, False),
+            ({"shard_proves": 1, "fabric": 1}, "s2", {"echo"}, True),
+            ({"fabric": 1}, None, set(), False)):
+        svc = TrustService(client, ServiceConfig(port=0, **knobs),
+                           str(tmp_path / "cursor"), provers=registry,
+                           state_dir=(str(tmp_path / state)
+                                      if state else None))
+        assert svc.jobs.shard_kinds == kinds
+        assert isinstance(svc.fabric, FabricStore) == fabric
+        status = svc.jobs.pool_status()
+        assert status["shard_kinds"] == sorted(kinds)
+        if fabric:
+            assert svc.fabric.root == str(tmp_path / state / "fabric")
+            assert status["fabric"]["workers_live"] == 0
+            assert (tmp_path / state / "fabric" / "units").is_dir()
+        else:
+            assert status["fabric"] is None
+        svc.watchdog.stop()
 
     files = EigenFile(tmp_path)
     files.kzg_params(20).write_bytes(b"srs")

@@ -7,10 +7,16 @@ instruments labelled ``{backend, semiring}``), and the same values where
 the inputs are the same; the backend label reads ``torch-*`` where the
 reference's reads ``jax-*``. A JSONL record the port streams must pass
 the reference's ``validate_record``.
+
+Only the series the test's own calls record are compared: a service
+thread another test left alive (a stall watchdog writing ``thread_*``
+gauges) shares the process tracer, so each tracer notes the instrument
+names fetched on the test's thread, and ``_series`` keeps those.
 """
 
 import json
 import random
+import threading
 
 import numpy as np
 import pytest
@@ -33,6 +39,25 @@ from protocol_tpu_torch.utils import trace as port_trace
 N = 120
 
 
+_OWN = {}  # id(tracer) -> instrument names fetched on the test's thread
+
+
+def _note_own(tracer, ident):
+    """Wrap ``tracer._instrument`` (what ``counter``/``gauge``/
+    ``histogram`` fetch through) to note the names asked for on the
+    thread ``ident``; returns the set."""
+    own = _OWN[id(tracer)] = set()
+    fetch = tracer._instrument
+
+    def noting(name, *args, **kwargs):
+        if threading.get_ident() == ident:
+            own.add(name)
+        return fetch(name, *args, **kwargs)
+
+    tracer._instrument = noting
+    return own
+
+
 @pytest.fixture()
 def tracers():
     was = [ref_trace.TRACER.enabled, port_trace.TRACER.enabled]
@@ -40,8 +65,11 @@ def tracers():
         t.reset()
         t.reset_instruments()
         t.enable()
+        _note_own(t, threading.get_ident())
     yield ref_trace.TRACER, port_trace.TRACER
     for t, on in zip((ref_trace.TRACER, port_trace.TRACER), was):
+        del t._instrument  # the class's method again
+        _OWN.pop(id(t), None)
         t.reset()
         t.reset_instruments()
         t.compile_tracker.reset()
@@ -50,14 +78,16 @@ def tracers():
 
 
 def _series(tracer, rename=None):
-    """``{(name, kind): {labels: value}}``: gauges and counters by value,
-    histograms by observation count; ``rename`` maps label values. The
-    ``xla_*`` compile instruments are left out: only the reference
-    compiles (the port's ``compile_stats()`` reads zero)."""
+    """``{(name, kind): {labels: value}}`` of the instruments the test's
+    own calls fetched: gauges and counters by value, histograms by
+    observation count; ``rename`` maps label values. The ``xla_*``
+    compile instruments are left out: only the reference compiles (the
+    port's ``compile_stats()`` reads zero)."""
     rename = rename or {}
+    own = _OWN[id(tracer)]
     out = {}
     for inst in tracer.instruments():
-        if inst.name.startswith("xla_"):
+        if inst.name.startswith("xla_") or inst.name not in own:
             continue
         rows = (inst.series() if inst.kind == "histogram"
                 else inst.samples())
