@@ -144,12 +144,31 @@ unsharded prove's bytes,
 the fabric series on ``/metrics``, the worker on ``/fleet`` and a
 clean exit on SIGTERM.
 
+The device MSM (phase ``msm``, ``ops/msm_device.py``: the sorted-prefix
+Pippenger, every field op on B2, ``add_mod`` and ``sub_mod``) runs at
+full width (c = 4, 66 windows) over 2^16 and 2^20 bases of a seeded SRS
+with seeded scalars below R: each point equal to the host's
+``g1_msm_multi`` on the same bases and scalars, the field launches of
+each MSM equal to the count the code gives (``launch_counts``), P and
+−P cancelling to the identity; it prints the host prep, the device
+seconds, the host MSM's seconds, peak device memory and one group-law
+add's device and host time. In phase ``msm_commits``,
+``run_commits_workload`` at k = 13 with 8 columns runs on the host and
+under ``PTPU_MSM_DEVICE=1`` (each with its own oracle check, the card's
+launches those of 16 full-width MSMs), and a k = 12 lockstep proves on
+the card with its commits through the device MSM, byte-equal to the
+host prove and verifying; then the profile library's pool workloads
+(``proofs``, ``sharded``, ``fabric``) run at their defaults, each with
+its own byte-parity checks.
+
 The phases that time a kernel (through ``prove``'s NTT, ``DeviceProver``
-and lockstep pieces) run first and alone on the card. Phase
-``threshold``, host-bound for most of its wall, then runs as a process
-of its own (``chip_smoke.py --threshold-child``, its launch counts its
-own) beside the phases from ``scenario`` to ``fabric``, which time no
-kernel; the run joins it last.
+and lockstep pieces, and ``msm``) run first and alone on the card. Two
+processes of their own then run beside the phases from ``scenario`` to
+``fabric``, which time no kernel: phase ``threshold``, host-bound for
+most of its wall (``chip_smoke.py --threshold-child``), and phases
+``msm_commits`` and ``workloads``, paced by the host's launches
+(``--msm-child``); each child's launch counts are its own, and the run
+joins both last.
 
 Every phase prints one JSON line, with the run's elapsed seconds
 (``t_s``) and a progress line on stderr; any failed check exits
@@ -163,6 +182,7 @@ of JAX or of ``protocol_tpu``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -301,6 +321,18 @@ PROVE_PROFILE_K = 18
 PROVE_MIN_COVERAGE = 0.95
 PROVE_SRS_SEED = b"chip-smoke-srs"
 PROVE_MNEMONICS = SCORES_MNEMONICS[:2]  # the tiny shape holds 2 peers
+# phase msm: full-width device MSMs (c = 4, 66 windows) over a seeded
+# SRS, held against the host's all-core MSM
+MSM_SIZES = (1 << 16, 1 << 20)
+MSM_C = 4
+MSM_SRS_SEED = b"chip-smoke-msm-srs"
+MSM_SCALAR_SEED = 41
+MSM_ADD_LANES = ((1, 20), (1 << 16, 5), (1 << 20, 3))  # (lanes, launches)
+# beside the threshold process: the commits workload with and without
+# PTPU_MSM_DEVICE=1, and a lockstep prove committing on the card
+COMMITS_K = 13
+COMMITS_COLUMNS = 8
+MSM_LOCKSTEP_K = 12
 # phase threshold: the CLI's only Threshold shape (4 peers, 20
 # iterations, both proves at TH_PARAMS_K = 21) on a seeded SRS
 TH_SRS_SEED = b"chip-smoke-th-srs"
@@ -3077,10 +3109,35 @@ def _dp_pieces(device, k: int) -> dict:
     return rec
 
 
-def _lockstep(device, k: int) -> dict:
+@contextlib.contextmanager
+def _msm_device_flag(on: bool):
+    """``PTPU_MSM_DEVICE=1`` (commits through the device MSM) set, or
+    unset, for the calls inside; the old value after."""
+    old = os.environ.get("PTPU_MSM_DEVICE")
+    if on:
+        os.environ["PTPU_MSM_DEVICE"] = "1"
+    else:
+        os.environ.pop("PTPU_MSM_DEVICE", None)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("PTPU_MSM_DEVICE", None)
+        else:
+            os.environ["PTPU_MSM_DEVICE"] = old
+
+
+def _commit_stage_s(path: str) -> dict:
+    return {k: v for k, v in _stage_seconds(path).items()
+            if k.startswith("commit.")}
+
+
+def _lockstep(device, k: int, msm_device: bool = False) -> dict:
     """A synthetic circuit proved by ``prove_fast_tpu`` on the card and
     ``prove_fast`` on the host from one seeded blinding stream: the
-    proofs must be the same bytes, and verify."""
+    proofs must be the same bytes, and verify. With ``msm_device`` the
+    card's prove runs under ``PTPU_MSM_DEVICE=1``, so its commits go
+    through the device MSM too; the host prove commits on the host."""
     import random
 
     from protocol_tpu_torch.cli.profilecmd import synthetic_circuit
@@ -3092,19 +3149,33 @@ def _lockstep(device, k: int) -> dict:
     params = pf.setup_params_fast(k, seed=b"chip-smoke-lockstep")
     pk = pf.keygen_fast(params, cs, k=k, eval_pk=True)
     r1, r2 = random.Random(42), random.Random(42)
+    dev_commits0 = _commit_stage_s("device")
     t0 = time.perf_counter()
-    dev = pf.prove_fast_tpu(params, pk, cs, randint=lambda: r1.randrange(R),
-                            device=device)
+    with _msm_device_flag(msm_device):
+        dev = pf.prove_fast_tpu(params, pk, cs,
+                                randint=lambda: r1.randrange(R),
+                                device=device)
     dev_s = time.perf_counter() - t0
+    host_commits0 = _commit_stage_s("host")
     t0 = time.perf_counter()
-    host = pf.prove_fast(params, pk, cs, randint=lambda: r2.randrange(R))
+    with _msm_device_flag(False):
+        host = pf.prove_fast(params, pk, cs, randint=lambda: r2.randrange(R))
     host_s = time.perf_counter() - t0
     check(dev == host, f"k={k}: the card's proof differs from the host's")
     check(verify(params, pk, cs.public_values(), dev),
           f"k={k}: the card's proof does not verify")
     pf._DEVICE_PROVERS.clear()
-    return {"k": k, "rows": cs.num_rows, "device_prove_s": dev_s,
-            "host_prove_s": host_s, "bytes": len(dev)}
+
+    def spent(now, before):
+        return sum(v - before.get(key, 0.0) for key, v in now.items())
+
+    return {"k": k, "rows": cs.num_rows, "msm_device": msm_device,
+            "device_prove_s": dev_s, "host_prove_s": host_s,
+            "device_prove_commits_s": spent(_commit_stage_s("device"),
+                                            dev_commits0),
+            "host_prove_commits_s": spent(_commit_stage_s("host"),
+                                          host_commits0),
+            "bytes": len(dev)}
 
 
 def _stage_seconds(path: str) -> dict:
@@ -3712,6 +3783,206 @@ def phase_fabric(device) -> dict:
     return rec
 
 
+def _msm_srs(n: int) -> tuple:
+    """A seeded SRS of ``n`` G1 powers of τ on the host's fixed-base
+    kernel, and seeded scalars below R: (bases as (n, 8) limbs for the
+    host MSM, the same as affine int pairs for the device MSM, scalars
+    as (n, 4) limbs, the same as ints)."""
+    import numpy as np
+
+    from protocol_tpu_torch.native import prover as native
+    from protocol_tpu_torch.utils.fields import (
+        BN254_FQ_MODULUS as Q,
+        BN254_FR_MODULUS as R,
+    )
+    from protocol_tpu_torch.zk.bn254 import G1_GEN
+
+    tau = int.from_bytes(MSM_SRS_SEED, "little") % (R - 1) + 1
+    powers = [1] * n
+    for i in range(1, n):
+        powers[i] = powers[i - 1] * tau % R
+    limbs = native.g1_fixed_base_muls(Q, G1_GEN, native.ints_to_limbs(powers))
+    vals = native.limbs_to_ints(limbs.reshape(-1, 4))
+    rng = random.Random(MSM_SCALAR_SEED)
+    raw = np.frombuffer(rng.getrandbits(256 * n).to_bytes(32 * n, "little"),
+                        dtype="<u8").reshape(n, 4).copy()
+    raw[:, 3] &= (1 << 61) - 1  # below 2^253 < R
+    return (limbs, list(zip(vals[0::2], vals[1::2])), raw,
+            native.limbs_to_ints(raw))
+
+
+def _msm_add_times(device, xs, ys) -> dict:
+    """One group-law add (``secp_batch._add``, the MSM's step) at the
+    scan's lane counts and at the telescope's one lane: device ms by
+    CUDA-graph replay, and at one lane the host's pace (ms a call, run
+    back to back and synchronised), which sets the telescope's time."""
+    import torch
+
+    from protocol_tpu_torch.ops import msm_device as md
+
+    out = {}
+    for lanes, launches in MSM_ADD_LANES:
+        one = md.mont_one(md.CTX_Q, lanes, device).contiguous()
+        p = (xs[:lanes], ys[:lanes], one)
+        q = (ys[:lanes], xs[:lanes], one)
+        rec = graph_ms(lambda i, p=p, q=q: md._add(md.CTX_Q, p, q),
+                       launches)
+        if lanes == 1:
+            for _ in range(3):
+                md._add(md.CTX_Q, p, q)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(launches):
+                md._add(md.CTX_Q, p, q)
+            torch.cuda.synchronize()
+            rec["host_ms"] = (time.perf_counter() - t0) * 1e3 / launches
+        out[lanes] = rec
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_msm(device) -> dict:
+    """The device MSM (``ops/msm_device.py``, every field op on B2,
+    ``add_mod`` and ``sub_mod``) at full width (c = 4, 66 windows) over
+    2^16 and 2^20 bases of a seeded SRS with seeded scalars below R:
+    each result equal to the host's ``g1_msm_multi`` on the same bases
+    and scalars, its field launches equal to ``launch_counts``, P and −P
+    cancelling to the identity. Timed: host prep (ints to limbs, upload),
+    device s (synchronised), the host MSM beside it, the MSM's peak
+    device memory above what the process held, and one group-law add.
+    Returns the phase's record, its field launches under
+    ``launches``."""
+    import torch
+
+    from protocol_tpu_torch.native import prover as native
+    from protocol_tpu_torch.ops import msm_device as md
+    from protocol_tpu_torch.ops.kernels import field_kernel as fk
+    from protocol_tpu_torch.utils.fields import BN254_FQ_MODULUS as Q
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    limbs, points, raw, scalars = _msm_srs(max(MSM_SIZES))
+    srs_s = time.perf_counter() - t0
+    total = dict.fromkeys(fk.LAUNCHES, 0)
+    runs = {}
+    for n in MSM_SIZES:
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fk.reset_launches()
+        t0 = time.perf_counter()
+        got = md.msm_device(points[:n], scalars[:n], c=MSM_C, device=device)
+        wall_s = time.perf_counter() - t0
+        launches = dict(fk.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() - held  # the MSM's own
+        t0 = time.perf_counter()
+        host = native.g1_msm_multi(Q, limbs[:n], raw[None, :n])[0]
+        host_s = time.perf_counter() - t0
+        check(got is not None and got == host,
+              f"msm n={n}: the device MSM differs from g1_msm_multi")
+        expect = md.launch_counts(n, MSM_C)
+        check(launches == expect, f"msm n={n}: launches {launches}, the "
+              f"code's count {expect}")
+        for k in total:
+            total[k] += launches[k]
+        runs[n] = {"n": n, "host_prep_s": md.SECONDS["prep"],
+                   "device_s": md.SECONDS["device"], "wall_s": wall_s,
+                   "host_msm_s": host_s, "launches": launches,
+                   "peak_device_bytes": peak}
+        emit("msm_run", **runs[n])
+        torch.cuda.empty_cache()
+
+    fk.reset_launches()
+    p = points[1]
+    t0 = time.perf_counter()
+    cancel = md.msm_device([p, (p[0], (Q - p[1]) % Q)], [scalars[1]] * 2,
+                           c=MSM_C, device=device)
+    cancel_s = time.perf_counter() - t0
+    check(cancel is None, "msm: P and -P do not cancel to the identity")
+    for k in total:
+        total[k] += fk.LAUNCHES[k]
+        check(total[k] > 0, f"msm: {k} was not launched")
+
+    xs, ys = md.upload_points(points[:max(MSM_SIZES)], device)
+    add = _msm_add_times(device, xs, ys)
+    del xs, ys
+    torch.cuda.empty_cache()
+    rec = {"c": MSM_C, "windows": (md.SCALAR_BITS + MSM_C - 1) // MSM_C,
+           "srs_s": srs_s, "cancel_s": cancel_s,
+           "runs": {str(n): r for n, r in runs.items()},
+           "add_ms": {str(k): v for k, v in add.items()},
+           "launches": total, "wall_s": time.perf_counter() - t_phase}
+    emit("msm", **rec)
+    return rec
+
+
+def phase_msm_commits(device) -> dict:
+    """Beside the threshold process: ``run_commits_workload`` at k = 13
+    with 8 columns on the host, then under ``PTPU_MSM_DEVICE=1`` on the
+    card (each run's own oracle check; the card's field launches those
+    of 16 full-width MSMs over 2^13 bases), and a k = 12 lockstep whose
+    card prove commits through the device MSM, byte-equal to the host
+    prove and verifying. Returns the field launches of the card's
+    runs."""
+    from protocol_tpu_torch.cli.profilecmd import run_commits_workload
+    from protocol_tpu_torch.ops import msm_device as md
+    from protocol_tpu_torch.ops.kernels import field_kernel as fk
+
+    t_phase = time.perf_counter()
+    rec = {}
+    total = dict.fromkeys(fk.LAUNCHES, 0)
+    for mode in ("host", "device"):
+        before = _commit_stage_s("host")
+        fk.reset_launches()
+        t0 = time.perf_counter()
+        with _msm_device_flag(mode == "device"):
+            meta = run_commits_workload(k=COMMITS_K, columns=COMMITS_COLUMNS,
+                                        device=device)
+        wall_s = time.perf_counter() - t0
+        stages = {k: v - before.get(k, 0.0)
+                  for k, v in _commit_stage_s("host").items()
+                  if k.startswith("commit.bench_")}
+        rec[mode] = {"wall_s": wall_s, "stages_s": stages,
+                     "batched": meta["batched"],
+                     "launches": dict(fk.LAUNCHES)}
+        for k in total:
+            total[k] += fk.LAUNCHES[k]
+    per = md.launch_counts(1 << COMMITS_K, MSM_C)
+    expect = {k: 2 * COMMITS_COLUMNS * v for k, v in per.items()}
+    check(rec["device"]["launches"] == expect,
+          f"commits: the card's launches {rec['device']['launches']}, the "
+          f"code's count {expect}")
+    check(not any(rec["host"]["launches"].values()),
+          "commits: the host run launched field kernels")
+    emit("msm_commits", k=COMMITS_K, columns=COMMITS_COLUMNS, **rec)
+
+    fk.reset_launches()
+    lock = _lockstep(device, MSM_LOCKSTEP_K, msm_device=True)
+    lock["launches"] = dict(fk.LAUNCHES)
+    for k in total:
+        total[k] += fk.LAUNCHES[k]
+        check(total[k] > 0, f"msm commits: {k} was not launched")
+    emit("msm_lockstep", **lock)
+    return {"commits": rec, "lockstep": lock, "launches": total,
+            "wall_s": time.perf_counter() - t_phase}
+
+
+def phase_workloads() -> dict:
+    """The profile library's pool workloads at their defaults: host
+    proves through a two-worker pool, sharded across it, and across the
+    fabric to an in-thread worker, each byte-equal to the direct prove
+    (their own checks)."""
+    from protocol_tpu_torch.cli import profilecmd as prof
+
+    rec = {}
+    for name in ("proofs", "sharded", "fabric"):
+        t0 = time.perf_counter()
+        meta = getattr(prof, f"run_{name}_workload")()
+        rec[name] = {**meta, "wall_s": time.perf_counter() - t0}
+    emit("workloads", **rec)
+    return rec
+
+
 def _field_record(name: str, launches: int, err: int, times: dict) -> dict:
     t = times[(name, 262_144)]
     replaces = {"mont_mul": "protocol_tpu/ops/pallas_kernels.py:32",
@@ -3726,35 +3997,47 @@ def _field_record(name: str, launches: int, err: int, times: dict) -> dict:
 
 
 THRESHOLD_CHILD = "--threshold-child"  # internal: phase threshold alone
+MSM_CHILD = "--msm-child"  # internal: phases msm_commits and workloads
 
 
-def _start_threshold() -> tuple:
-    """Phase threshold as a process of its own, beside the host-bound
+def _msm_child_phases(device) -> dict:
+    return {"msm_commits": phase_msm_commits(device),
+            "workloads": phase_workloads()}
+
+
+# the phases each child runs, by its flag: (name, phases(device) -> record)
+CHILDREN = {THRESHOLD_CHILD: ("threshold", lambda d: phase_threshold(d)),
+            MSM_CHILD: ("msm_commits", _msm_child_phases)}
+
+
+def _start_child(flag: str) -> tuple:
+    """A child's phases as a process of their own, beside the host-bound
     phases: ``(child, its directory)``. Its launch counts are its own."""
+    name = CHILDREN[flag][0]
     d = Path(tempfile.mkdtemp(prefix=".chip_smoke_", dir=ROOT))
-    argv = [sys.executable, ROOT / "chip_smoke.py", THRESHOLD_CHILD,
-            d / "threshold.json"]
-    return _Child(argv, d, "threshold", dict(os.environ)), d
+    argv = [sys.executable, ROOT / "chip_smoke.py", flag, d / f"{name}.json"]
+    return _Child(argv, d, name, dict(os.environ)), d
 
 
-def _join_threshold(child, d: Path) -> dict:
-    """Wait for the threshold process; its record, or its failure."""
+def _join_child(child, d: Path, flag: str) -> dict:
+    """Wait for a child process; its record, or its failure."""
+    name = CHILDREN[flag][0]
     try:
-        _, err = child.finish(SMOKE_DEADLINE_S, "phase threshold")
+        _, err = child.finish(SMOKE_DEADLINE_S, f"phase {name}")
     except SmokeFailure as e:
         raise SmokeFailure(f"{e}: {child.err_path.read_text()[-3000:]}") \
             from None
     check(child.proc.returncode == 0,
-          f"phase threshold exited {child.proc.returncode}: {err[-3000:]}")
-    return json.loads((d / "threshold.json").read_text())
+          f"phase {name} exited {child.proc.returncode}: {err[-3000:]}")
+    return json.loads((d / f"{name}.json").read_text())
 
 
-def _threshold_child(device, out: Path) -> int:
+def _run_child(flag: str, device, out: Path) -> int:
     from protocol_tpu_torch.utils import trace
 
-    trace.enable()  # in memory: the phase reads the prover's histograms
+    trace.enable()  # in memory: the phases read the prover's histograms
     try:
-        rec = phase_threshold(device)
+        rec = CHILDREN[flag][1](device)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3791,8 +4074,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     device = torch.device("cuda")
-    if sys.argv[1:2] == [THRESHOLD_CHILD]:
-        return _threshold_child(device, Path(sys.argv[2]))
+    if sys.argv[1:2] and sys.argv[1] in CHILDREN:
+        return _run_child(sys.argv[1], device, Path(sys.argv[2]))
     from protocol_tpu_torch.utils import trace
 
     trace.enable()  # in memory: the churn phase reads the build counter
@@ -3803,7 +4086,7 @@ def main() -> int:
          host=_host())
     t_start = time.perf_counter()
     faulthandler.dump_traceback_later(DUMP_AFTER_S - (t_start - _T0))
-    child = None
+    children: dict = {}
     try:
         phase_build()
         # the phases that time kernels run alone on the card
@@ -3817,9 +4100,12 @@ def main() -> int:
         field_times = phase_field_times(device)
         converge_launches = phase_field_converge(device)
         pieces = phase_prove_pieces(device)
+        msm = phase_msm(device)
         # the Threshold proofs (host circuit builds and commits, most of
-        # a run's wall) beside the rest, which times no kernel
-        child, child_dir = _start_threshold()
+        # a run's wall) and the device MSM's commits (paced by the host's
+        # launches) beside the rest, which times no kernel
+        for flag in CHILDREN:
+            children[flag] = _start_child(flag)
         t_child = time.perf_counter()
         scenario_launches = phase_scenario(device)
         phase_entry(device)
@@ -3830,7 +4116,13 @@ def main() -> int:
         prove = phase_prove(device, pieces)
         fabric = phase_fabric(device)
         t_rest = time.perf_counter() - t_child
-        threshold = _join_threshold(child, child_dir)
+        beside = _join_child(*children[MSM_CHILD], MSM_CHILD)
+        msm_commits = beside["msm_commits"]
+        emit("msm_commits", **msm_commits, beside_s=t_rest,
+             joined_after_s=time.perf_counter() - t_child)
+        emit("workloads", **beside["workloads"])
+        threshold = _join_child(*children[THRESHOLD_CHILD],
+                                THRESHOLD_CHILD)
         emit("threshold", **threshold, beside_s=t_rest,
              joined_after_s=time.perf_counter() - t_child)
     except SmokeFailure as e:
@@ -3838,7 +4130,7 @@ def main() -> int:
         return 1
     finally:
         faulthandler.cancel_dump_traceback_later()
-        if child is not None:
+        for child, child_dir in children.values():
             child.stop()
             shutil.rmtree(child_dir, ignore_errors=True)
     edge = times[262_144]  # the edge route's first stage: forward, m = T
@@ -3871,6 +4163,8 @@ def main() -> int:
                    "prove": prove["launches"][k],
                    "threshold": threshold["launches"][k],
                    "fabric": fabric["launches"][k],
+                   "msm": msm["launches"][k],
+                   "msm_commits": msm_commits["launches"][k],
                    **({"field_converge": converge_launches}
                       if k == "mont_mul" else {})})
           for k in ("mont_mul", "add_mod", "sub_mod")]}), flush=True)

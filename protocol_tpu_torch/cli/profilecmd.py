@@ -8,8 +8,14 @@ synthetic trust-graph converge through a backend) on the verb, and the
 library functions
 ``run_delta_workload`` and ``run_sublinear_workload`` (the churn path:
 one routed build, a ``DeltaEngine`` anchor, churn windows, the refresh
-ladder) and ``run_scenario_workload`` (a sybil ring under both
-semirings), which the reference's CLI does not expose either;
+ladder), ``run_scenario_workload`` (a sybil ring under both
+semirings), ``run_commits_workload`` (the commit engine's batched
+flushes against its serial oracle, through the device MSM under
+``PTPU_MSM_DEVICE=1``) and the pool's ``run_proofs_workload``,
+``run_sharded_workload`` and ``run_fabric_workload`` (host proves
+through the proof pool, its worker lending and the cross-process
+fabric, each byte-equal to the direct prove), which the reference's CLI
+does not expose either;
 ``daemon`` submits a ``profile`` capture job to a live ``serve`` daemon
 (``--url``) and reports its result.
 
@@ -235,6 +241,266 @@ def run_scenario_workload(peers: int = 4000, seed: int = 23,
                            for name, rep in reports.items()},
             "capture": {name: rep["robustness"]["attacker_mass_capture"]
                         for name, rep in reports.items()}}
+
+
+def run_commits_workload(k: int = 13, columns: int = 8,
+                         seed: int = 23, device=None) -> dict:
+    """The commit engine in isolation at a size where the MSM is the
+    cost: one batched flush of ``columns`` Lagrange-basis eval columns
+    and one of SRS coefficient columns at 2^k, stage-attributed as
+    ``commit.bench_evals`` / ``commit.bench_coeffs`` (batched label
+    from the engine). One column of each batch is re-committed through
+    the serial oracle and compared, so a fast-but-wrong batch can never
+    pass. Under ``PTPU_MSM_DEVICE=1`` the engine
+    commits through the device MSM on ``device`` (default: the card)."""
+    import random
+
+    import numpy as np
+
+    from ..native import prover as native
+    from ..utils.fields import BN254_FR_MODULUS as R
+    from ..zk import prover_fast as pf
+    from ..zk.commit_engine import CommitEngine
+
+    if not native.available():
+        raise EigenError("config_error",
+                         "the commits workload needs the native "
+                         "toolchain")
+    params = pf.setup_params_fast(k, seed=b"commit-bench")
+    rng = random.Random(seed)
+    n = 1 << k
+    blob = np.frombuffer(
+        rng.getrandbits(8 * 32 * n * columns).to_bytes(
+            32 * n * columns, "little"),
+        dtype="<u8").reshape(columns, n, 4).copy()
+    blob[:, :, 3] &= (1 << 59) - 1  # keep scalars < R
+    eng = CommitEngine(params, msm_device=device)
+    with pf._stage("commit.bench_evals", k, "host",
+                   labels=eng.stage_labels()):
+        for i in range(columns):
+            eng.submit_evals(f"col{i}", blob[i])
+        eval_pts = eng.flush()
+    with pf._stage("commit.bench_coeffs", k, "host",
+                   labels=eng.stage_labels()):
+        for i in range(columns):
+            eng.submit_coeffs(f"col{i}", blob[i])
+        coeff_pts = eng.flush()
+    if eval_pts[0] != pf._msm_signed(pf.lagrange_limbs(params), blob[0]):
+        raise EigenError("resource_error",
+                         "batched eval commit diverged from the serial "
+                         "oracle")
+    if coeff_pts[-1] != pf.commit_limbs(params, blob[-1]):
+        raise EigenError("resource_error",
+                         "batched coeff commit diverged from the "
+                         "serial oracle")
+    return {"workload": "commits", "k": k, "columns": columns,
+            "batched": eng.batching}
+
+
+def run_proofs_workload(k: int = 7, gates: int = 64, jobs: int = 6,
+                        workers: int = 2, seed: int = 7) -> dict:
+    """Real host-path proves through a ``workers``-worker ProofWorkerPool
+    (the serve daemon's proof path at pool scale): exercises per-worker
+    prover isolation, cache-affinity scheduling and the submit→run
+    pipeline. Stage timings land in ``ptpu_prover_stage_seconds`` (with
+    worker labels) and the ``service.proof`` spans, where a scheduling
+    regression (queue stall, lost wakeup, serialization across workers)
+    shows up as wall-time growth."""
+    from ..native import prover as native
+    from ..service.faults import FaultInjector
+    from ..service.pool import ProofWorkerPool
+    from ..zk import prover_fast as pf
+
+    if not native.available():
+        raise EigenError("config_error",
+                         "the proofs workload needs the native toolchain")
+    cs = synthetic_circuit(gates=gates, seed=seed)
+    params = pf.setup_params_fast(k, seed=b"profile-pool")
+    pk = pf.keygen_fast(params, cs, k=k, eval_pk="auto")
+    reference = pf.prove_fast(params, pk, cs, randint=lambda: 424242)
+
+    def prove(p):
+        return {"proof": pf.prove_fast(
+            params, pk, cs, randint=lambda: 424242).hex()}
+
+    pool = ProofWorkerPool(
+        {"eigentrust": prove}, capacity=max(jobs, 8), workers=workers,
+        faults=FaultInjector({"rpc": 0.0, "device": 0.0, "disk": 0.0}),
+        worker_env=lambda w: pf.worker_isolation(w.name, w.device))
+    pool.start()
+    submitted = [pool.submit("eigentrust", {}) for _ in range(jobs)]
+    deadline = time.monotonic() + 300.0
+    while pool.completed + pool.failed < jobs:
+        if time.monotonic() > deadline:
+            raise EigenError("resource_error", "proof pool stalled")
+        time.sleep(0.01)
+    for job in submitted:
+        got = pool.get(job.job_id)
+        if got.status != "done" or \
+                bytes.fromhex(got.result["proof"]) != reference:
+            raise EigenError(
+                "verification_error",
+                f"pool proof diverged from the single-worker output "
+                f"({got.status}: {got.error})")
+    status = pool.pool_status()
+    pool.drain(10.0)
+    return {"workload": "proofs", "k": k, "gates": gates, "jobs": jobs,
+            "workers": workers,
+            "per_worker": {w["worker"]: w["jobs_run"]
+                           for w in status["workers"]}}
+
+
+def run_sharded_workload(k: int = 7, gates: int = 64, workers: int = 2,
+                         jobs: int = 3, seed: int = 9) -> dict:
+    """Real host-path proves SHARDED across a 2-worker pool (worker
+    lending, ``pool.shard_kinds``): each prove's commit columns,
+    quotient row chunks and opening folds fan out to the idle worker
+    and rendezvous in submission order. Byte parity vs the direct
+    single-worker prove is asserted per job, and the run must have
+    actually sharded (``ptpu_prove_shards_total`` > 0) — a fan-out
+    regression that silently serializes would otherwise still pass.
+    The ``service.proof`` and ``prove.shard`` spans time it (the shard
+    counter counts only while the tracer is enabled)."""
+    from ..native import prover as native
+    from ..service.faults import FaultInjector
+    from ..service.pool import ProofWorkerPool
+    from ..utils import trace
+    from ..zk import prover_fast as pf
+
+    if not native.available():
+        raise EigenError("config_error",
+                         "the sharded workload needs the native "
+                         "toolchain")
+    cs = synthetic_circuit(gates=gates, seed=seed)
+    params = pf.setup_params_fast(k, seed=b"profile-shard")
+    pk = pf.keygen_fast(params, cs, k=k, eval_pk="auto")
+    reference = pf.prove_fast(params, pk, cs, randint=lambda: 424242)
+    shards0 = trace.counter_total("prove_shards")
+
+    def prove(p):
+        return {"proof": pf.prove_fast(
+            params, pk, cs, randint=lambda: 424242).hex()}
+
+    pool = ProofWorkerPool(
+        {"eigentrust": prove}, capacity=max(jobs, 8), workers=workers,
+        faults=FaultInjector({"rpc": 0.0, "device": 0.0, "disk": 0.0}),
+        shard_kinds={"eigentrust"}, shard_cap=4,
+        worker_env=lambda w: pf.worker_isolation(w.name, w.device))
+    pool.start()
+    submitted = [pool.submit("eigentrust", {}) for _ in range(jobs)]
+    deadline = time.monotonic() + 300.0
+    while pool.completed + pool.failed < jobs:
+        if time.monotonic() > deadline:
+            raise EigenError("resource_error", "sharded pool stalled")
+        time.sleep(0.01)
+    for job in submitted:
+        got = pool.get(job.job_id)
+        if got.status != "done" or \
+                bytes.fromhex(got.result["proof"]) != reference:
+            raise EigenError(
+                "verification_error",
+                f"sharded proof diverged from the direct prove "
+                f"({got.status}: {got.error})")
+    shards = trace.counter_total("prove_shards") - shards0
+    if shards <= 0:
+        raise EigenError("resource_error",
+                         "sharding never engaged (0 shard units)")
+    status = pool.pool_status()
+    pool.drain(10.0)
+    return {"workload": "sharded", "k": k, "gates": gates,
+            "jobs": jobs, "workers": workers, "shards": int(shards),
+            "lent": {w["worker"]: w["shards_run"]
+                     for w in status["workers"]}}
+
+
+def run_fabric_workload(k: int = 7, gates: int = 64, jobs: int = 3,
+                        seed: int = 9) -> dict:
+    """Real host-path proves sharded across the CROSS-PROCESS fabric
+    (``zk/fabric.py``): a 1-worker pool publishes portable units to a
+    throwaway FabricStore and an external worker loop (in-thread here,
+    so the run times the serialization and rendezvous, not a process
+    spawn) claims, executes and returns them. Byte parity vs
+    the direct prove is asserted per job, and at least one unit must
+    have been applied from the fabric (``ptpu_fabric_units_total`` > 0)
+    — a publish/claim regression that silently degrades to all-local
+    would otherwise still pass. The ``service.proof``, ``prove.shard``
+    and ``fabric.unit`` spans time it (the unit counter counts only
+    while the tracer is enabled); the worker is the port's
+    ``run_worker``, whose heartbeat thread keeps its own name."""
+    import shutil
+    import tempfile
+    import threading
+
+    from ..native import prover as native
+    from ..service.faults import FaultInjector
+    from ..service.pool import ProofWorkerPool
+    from ..utils import trace
+    from ..zk import prover_fast as pf
+    from ..zk.fabric import FabricStore, run_worker
+
+    if not native.available():
+        raise EigenError("config_error",
+                         "the fabric workload needs the native "
+                         "toolchain")
+    cs = synthetic_circuit(gates=gates, seed=seed)
+    params = pf.setup_params_fast(k, seed=b"profile-shard")
+    pk = pf.keygen_fast(params, cs, k=k, eval_pk="auto")
+    reference = pf.prove_fast(params, pk, cs, randint=lambda: 424242)
+    units0 = trace.counter_total("fabric_units")
+
+    def prove(p):
+        return {"proof": pf.prove_fast(
+            params, pk, cs, randint=lambda: 424242).hex()}
+
+    root = tempfile.mkdtemp(prefix="ptpu-fabric-")
+    fabric = FabricStore(root, lease_ttl=5.0)
+    pool = ProofWorkerPool(
+        {"eigentrust": prove}, capacity=max(jobs, 8), workers=1,
+        faults=FaultInjector({"rpc": 0.0, "device": 0.0, "disk": 0.0}),
+        shard_kinds={"eigentrust"}, shard_cap=4,
+        worker_env=lambda w: pf.worker_isolation(w.name, w.device),
+        fabric=fabric)
+    pool.start()
+    stop = threading.Event()
+    worker = threading.Thread(
+        target=run_worker, args=(fabric, "fw-gate"),
+        kwargs={"poll": 0.01, "stop": stop},
+        name="ptpu-profile-worker", daemon=True)
+    worker.start()
+    try:
+        deadline = time.monotonic() + 60.0
+        while fabric.workers_live() < 1:
+            fabric._workers_cache = (0.0, 0)
+            if time.monotonic() > deadline:
+                raise EigenError("read_write_error",
+                                 "fabric worker never registered")
+            time.sleep(0.01)
+        submitted = [pool.submit("eigentrust", {}) for _ in range(jobs)]
+        deadline = time.monotonic() + 300.0
+        while pool.completed + pool.failed < jobs:
+            if time.monotonic() > deadline:
+                raise EigenError("resource_error", "fabric pool stalled")
+            time.sleep(0.01)
+        for job in submitted:
+            got = pool.get(job.job_id)
+            if got.status != "done" or \
+                    bytes.fromhex(got.result["proof"]) != reference:
+                raise EigenError(
+                    "verification_error",
+                    f"fabric proof diverged from the direct prove "
+                    f"({got.status}: {got.error})")
+        units = trace.counter_total("fabric_units") - units0
+        if units <= 0:
+            raise EigenError("verification_error",
+                             "the fabric never engaged (0 units "
+                             "applied from the external worker)")
+    finally:
+        stop.set()
+        worker.join(timeout=10.0)
+        pool.drain(10.0)
+        shutil.rmtree(root, ignore_errors=True)
+    return {"workload": "fabric", "k": k, "gates": gates,
+            "jobs": jobs, "units": int(units)}
 
 
 # --- report ----------------------------------------------------------------

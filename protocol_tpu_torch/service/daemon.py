@@ -249,13 +249,16 @@ class TrustService:
             # dedups either way) and after the tailer restored the
             # persisted cursor (the fold floor)
             self._compact_wal(self.tailer.persisted_cursor)
+        self._ident_digest: tuple | None = None  # (revision, digest)
         from .provers import (
             PROOF_PRIORITIES,
             PROOF_SHARD_EXEMPT,
+            make_cache_key_fn,
             make_provers,
             make_worker_env,
         )
 
+        cache_key_fn = None
         if provers is None:
             if files is None:
                 raise EigenError(
@@ -263,11 +266,14 @@ class TrustService:
                     "need an EigenFile assets layout (files=) to build "
                     "the default provers, or pass provers= explicitly")
             # the default registry: eigentrust and threshold proofs and
-            # the capture window. Affinity stays kind-keyed (the pool's
-            # default)
+            # the capture window. Its affinity keys carry (kind, k,
+            # identity-set digest); injected registries keep kind-keyed
+            # affinity (the pool's default)
             provers = make_provers(self, files,
                                    shape_name=config.proof_shape,
                                    transcript=config.transcript)
+            cache_key_fn = make_cache_key_fn(
+                self, shape_name=config.proof_shape)
         # cross-process proving fabric (opt-in + needs durable state:
         # the fabric directory IS the worker rendezvous substrate, and
         # a memory-only daemon has no filesystem to share)
@@ -291,6 +297,7 @@ class TrustService:
             watermark=config.shed_watermark,
             queue_bytes=config.queue_bytes,
             worker_env=make_worker_env(self),
+            cache_key_fn=cache_key_fn,
             # every prover kind except the capture window is shardable
             # (PROOF_SHARD_EXEMPT) — injected test registries included,
             # so the smoke's deterministic provers shard like the real
@@ -573,6 +580,23 @@ class TrustService:
     def attestation_snapshot(self) -> list:
         with self._att_lock:
             return list(self._attestations)
+
+    def identity_digest(self) -> str:
+        """Digest of the current participant set: the identity-set
+        component of the proof pool's affinity cache keys. Cached per
+        graph revision, so a submit costs a tuple compare, not a hash
+        over every peer; the graph's interning is append-only, so a
+        stale read racing an apply at worst keys one job to the previous
+        set (an affinity miss, never an error)."""
+        from .provers import identity_digest_of
+
+        rev = self.graph.revision
+        cached = self._ident_digest
+        if cached is not None and cached[0] == rev:
+            return cached[1]
+        digest = identity_digest_of(self.graph.addresses())
+        self._ident_digest = (rev, digest)
+        return digest
 
     # --- proof artifacts --------------------------------------------------
     def proof_bytes(self, job_id: str) -> bytes | None:

@@ -11,12 +11,15 @@ byte-object identity, so a second job is a warm prove. The
 ``zk.api.generate_th_proof``, both of its proves (the inner EigenTrust
 snark and the Threshold circuit) on the job's device; ``profile`` is the
 capture window. Injected registries work as in the reference. The
+daemon's own registry keys the pool's affinity by kind, k and the
+digest of the participant set (``make_cache_key_fn``). The
 per-worker environment gives each worker thread a private DeviceProver
 cache pinned to its own CUDA device (``prover_fast.worker_isolation``).
 """
 
 from __future__ import annotations
 
+import hashlib
 import threading
 
 from ..utils import trace
@@ -56,13 +59,48 @@ def make_worker_env(_service=None):
 
 def _shape_params_k(shape_name: str):
     """(CircuitShape, et_params_k, th_params_k) for a served shape
-    name."""
+    name: the one mapping both :func:`make_provers` and
+    :func:`make_cache_key_fn` read, so the k in an affinity key is the
+    k the provers load."""
     from ..cli.main import ET_PARAMS_K, TH_PARAMS_K
     from ..zk import api as zk
 
     if shape_name == "tiny":
         return zk.TINY_SHAPE, 20, TH_PARAMS_K
     return zk.DEFAULT_SHAPE, ET_PARAMS_K, TH_PARAMS_K
+
+
+def make_cache_key_fn(service, shape_name: str = "default"):
+    """Affinity cache keys for the pool scheduler: ``(circuit kind, k,
+    identity-set digest)``, the identity of the prover state a worker
+    holds resident after a job of this kind. The same kind, k and
+    participant set mean the same warm DeviceProver and parsed key, so
+    the scheduler routes the job to the worker already holding them.
+    The digest folds the current attestation-backed address set
+    (``TrustService.identity_digest``, cached per graph revision);
+    profile jobs return None: a capture window leaves no prover state
+    worth chasing."""
+    _, et_k, th_k = _shape_params_k(shape_name)
+
+    def cache_key(kind: str, params: dict) -> str | None:
+        if kind == "eigentrust":
+            k = et_k
+        elif kind == "threshold":
+            k = th_k
+        else:
+            return None
+        return f"{kind}-k{k}-{service.identity_digest()}"
+
+    return cache_key
+
+
+def identity_digest_of(addresses) -> str:
+    """sha256 prefix over an ordered address list: the identity-set
+    component of the affinity cache key."""
+    h = hashlib.sha256()
+    for a in addresses:
+        h.update(a)
+    return h.hexdigest()[:16]
 
 
 def _job_device(service):

@@ -28,10 +28,11 @@ scheduler over the fix:
   computed out of order but are absorbed in order, so proofs are
   byte-identical with the engine on or off (tested for both prove
   paths).
-- **Device seam**: ``PTPU_MSM_DEVICE=1`` asks for a device MSM. The
-  port has none yet (ROADMAP A6b), so the engine raises instead of
-  committing on the host behind the caller's back; every commit runs on
-  the host, as in the reference's default.
+- **Device seam**: ``PTPU_MSM_DEVICE=1`` routes every column through
+  ``ops.msm_device.msm_device``, the sorted-prefix device MSM, on the
+  engine's ``msm_device`` (default: the card; raises without one). It
+  is opt-in, as in the reference: the host's batched MSM stays the
+  default.
 - **Shards**: when a shard runner is installed (``zk/shards.py`` — the
   proof pool installs one around shardable jobs), each ready group's
   columns split into ≤ fan-out sub-batches dispatched as addressable
@@ -45,7 +46,7 @@ scheduler over the fix:
 
 Knobs: ``PTPU_COMMIT_ENGINE=0`` disables batching (serial per-column
 oracle path, same scheduling surface); ``PTPU_MSM_DEVICE=1`` selects
-the (refused) device seam; ``PN_MSM_C`` / the cached auto-tune (see
+the device seam; ``PN_MSM_C`` / the cached auto-tune (see
 ``native.apply_msm_tuning``) size the Pippenger window.
 
 Observability: every batch records ``ptpu_commit_batch_size{bases}``
@@ -153,10 +154,14 @@ class CommitEngine:
     commit (batched + overlapped) and returns the points in submission
     order for in-order transcript absorption."""
 
-    def __init__(self, params):
+    def __init__(self, params, msm_device=None):
         self.params = params
         self.batching = engine_enabled()
         self.device = device_msm_enabled()
+        # the torch device of the device seam's MSMs, resolved at the
+        # first one (None: the card)
+        self.msm_device = msm_device
+        self._device_pts: dict = {}
         self._items: list = []
         self._cv = threading.Condition()
 
@@ -314,6 +319,19 @@ class CommitEngine:
             return pf.lagrange_limbs(self.params)
         return pf.srs_limbs(self.params)[:length]
 
+    def _device_base_points(self, bases_id: str, length: int,
+                            bases: np.ndarray) -> list:
+        cached = self._device_pts.get((bases_id, length))
+        if cached is None:
+            vals = native.limbs_to_ints(
+                np.ascontiguousarray(bases).reshape(-1, 4))
+            cached = []
+            for i in range(length):
+                x, y = vals[2 * i], vals[2 * i + 1]
+                cached.append(None if x == 0 and y == 0 else (x, y))
+            self._device_pts[(bases_id, length)] = cached
+        return cached
+
     def _commit_group(self, key: tuple, group: list) -> None:
         bases_id, length = key
         trace.histogram("commit_batch_size",
@@ -321,7 +339,12 @@ class CommitEngine:
             float(len(group)), bases=bases_id)
         bases = self._bases(bases_id, length)
         if self.device:
-            _device_msm()
+            from ..device import resolve_device
+
+            dev = resolve_device(self.msm_device)
+            pts = self._device_base_points(bases_id, length, bases)
+            for it in group:
+                it.point = _device_msm(pts, it.scalars, dev)
         elif self.batching:
             cols = []
             for it in group:
@@ -492,10 +515,15 @@ class FlushHandle:
         return [it.point for it in items]
 
 
-def _device_msm():
-    """The device MSM (``PTPU_MSM_DEVICE=1``) is not in the port yet:
-    refuse by name rather than commit on the host unasked."""
-    raise EigenError(
-        "proving_error",
-        "PTPU_MSM_DEVICE=1: the device MSM is not ported yet (ROADMAP "
-        "A6b); unset it to commit on the host")
+def _device_msm(pts: list, scalars: np.ndarray, device):
+    """One column through the sorted-prefix device MSM on ``device``:
+    identity bases and zero scalars are dropped, as the host oracle
+    drops them."""
+    from ..ops.msm_device import msm_device
+
+    sc = native.limbs_to_ints(np.ascontiguousarray(scalars))
+    pairs = [(p, s % R) for p, s in zip(pts, sc) if p is not None and s % R]
+    if not pairs:
+        return None
+    return msm_device([p for p, _ in pairs], [s for _, s in pairs],
+                      device=device)

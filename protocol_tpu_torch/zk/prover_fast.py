@@ -1267,7 +1267,8 @@ def _prove_fast_tpu_impl(params, pk, cs, public_inputs, randint,
     def ext8(coeff_dev, blinds=None):
         return dp.ext_chunks(coeff_dev, blinds)
 
-    eng = CommitEngine(params)
+    # under PTPU_MSM_DEVICE=1 the commits run on this prove's device too
+    eng = CommitEngine(params, msm_device=device)
     with _stage("witness_upload", pk.k, "device",
                 span_name="prove_device.r1_upload_intt"):
         wire_coeff_dev = [dp.upload_intt(wire_vals[w])

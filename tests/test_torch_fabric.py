@@ -426,18 +426,41 @@ def test_lapsed_lease_is_reclaimed(tmp_path, tracer):
         pool.drain(5.0)
 
 
-def test_msm_device_seam_still_names_a6b(proves, monkeypatch):
-    """``PTPU_MSM_DEVICE=1`` asks for the device MSM, which is still to
-    be ported (ROADMAP A6b): the commit engine raises naming it instead
-    of committing on the host behind the caller's back, and offers no
-    portable form of such a commit."""
-    from protocol_tpu_torch.utils.errors import EigenError
-    from protocol_tpu_torch.zk.commit_engine import CommitEngine
+def test_msm_device_seam_still_names_a6b(monkeypatch):
+    """``PTPU_MSM_DEVICE=1`` commits through the port's device MSM (ROADMAP
+    A6b, ported): with a CPU ``msm_device`` (the kernels' plain
+    versions), an eval column with blinds, zero scalars and an identity
+    base dropped, and a coefficient column give the host engine's
+    points byte for byte, and such a commit has no portable form. A
+    full 264-bit sweep costs ~30 s an MSM on the CPU, so the scalars stay
+    below 2^8 and the sweep is bounded to those 8 bits by the module's
+    ``SCALAR_BITS``; the card runs the full width in ``chip_smoke.py``."""
+    from protocol_tpu_torch.ops import msm_device as md
+    from protocol_tpu_torch.zk import prover_fast as pf
+    from protocol_tpu_torch.zk.bn254 import g1_msm
+    from protocol_tpu_torch.zk.commit_engine import CommitEngine, _device_msm
 
-    params = proves[1][0]
+    params = pf.setup_params_fast(3, seed=b"msm-device-seam")
+    rng = np.random.default_rng(3)
+    cols = np.zeros((2, 8, 4), dtype="<u8")
+    cols[:, :, 0] = rng.integers(0, 256, size=(2, 8))
+    cols[0, 2, 0] = 0
+
+    def commits():
+        eng = CommitEngine(params, msm_device="cpu")
+        eng.submit_evals("evals", cols[0], blinds=[5, 7])
+        eng.submit_coeffs("coeffs", cols[1])
+        return eng, eng.flush()
+
+    monkeypatch.delenv("PTPU_MSM_DEVICE", raising=False)
+    _, host = commits()
     monkeypatch.setenv("PTPU_MSM_DEVICE", "1")
-    eng = CommitEngine(params)
-    assert eng._commit_portable(("srs", 4), []) is None
-    eng.submit_coeffs("c", np.ones((4, 4), dtype="<u8"))
-    with pytest.raises(EigenError, match="A6b"):
-        eng.flush()
+    monkeypatch.setattr(md, "SCALAR_BITS", 8)
+    eng, dev = commits()
+    assert dev == host and None not in host
+    assert eng._commit_portable(("srs", 8), []) is None
+    # an identity base is dropped, as the host oracle drops it
+    pts = eng._device_base_points("srs", 8, pf.srs_limbs(params)[:8])
+    pts = [None] + pts[1:]
+    want = g1_msm(pts[1:], [int(v) for v in cols[1, 1:, 0]])
+    assert _device_msm(pts, cols[1], "cpu") == want

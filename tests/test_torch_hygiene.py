@@ -107,7 +107,16 @@ def test_port_imports_neither_jax_nor_reference():
               "protocol_tpu_torch.zk.loader_chip",
               "protocol_tpu_torch.zk.threshold_circuit",
               "protocol_tpu_torch.zk.yul",
-              "protocol_tpu_torch.zk.evm"):
+              "protocol_tpu_torch.zk.evm",
+              "protocol_tpu_torch.ops.msm_device",
+              "protocol_tpu_torch.crypto.edwards",
+              "protocol_tpu_torch.crypto.eddsa",
+              "protocol_tpu_torch.crypto.rescue_prime",
+              "protocol_tpu_torch.crypto.merkle",
+              "protocol_tpu_torch.crypto.tables.rescue_prime_bn254_5x5",
+              "protocol_tpu_torch.zk.eddsa_chip",
+              "protocol_tpu_torch.zk.rescue_chip",
+              "protocol_tpu_torch.zk.merkle_chip"):
         assert m in mods
 
 
@@ -123,7 +132,7 @@ def test_port_sources_name_no_reference_import():
                                          "import protocol_tpu.")), (path, s)
 
 
-def test_entry_points_raise_without_gpu():
+def test_entry_points_raise_without_gpu(monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid")
     from protocol_tpu_torch import backend
@@ -156,6 +165,19 @@ def test_entry_points_raise_without_gpu():
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ScoreRefresher(OpinionGraph(), ServiceConfig())
+    from protocol_tpu_torch.ops.msm_device import msm_device
+    from protocol_tpu_torch.zk import prover_fast as pf
+    from protocol_tpu_torch.zk.bn254 import G1_GEN
+    from protocol_tpu_torch.zk.commit_engine import CommitEngine
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        msm_device([G1_GEN], [1])
+    # the commit engine's device seam, given no msm_device
+    monkeypatch.setenv("PTPU_MSM_DEVICE", "1")
+    eng = CommitEngine(pf.setup_params_fast(3, seed=b"hygiene"))
+    eng.submit_coeffs("c", np.ones((4, 4), dtype="<u8"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eng.flush()
 
 
 def test_field_and_ingest_entry_points_raise_without_gpu():
