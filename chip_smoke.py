@@ -36,6 +36,27 @@ for all five (B1's batch axis), bit-exact against single routes and
 the plain stages, and within rtol 1e-4 of each topic's own converge;
 the batched stage and sweep are timed beside the single ones.
 
+On the same graph runs phase ``sharded``: the device mesh
+(``parallel/``) on a virtual mesh of eight repeats of the card, every
+shard launching its own kernels. The converge graph is row-sharded
+(all-gather of the scores, each shard's gather SpMV) and Clos-routed
+(device-major plan, B1 on every shard, the level-0 shuffle as an
+all-to-all) for 20 fixed sweeps and an adaptive run, each held against
+the single-device gather or routed converge (rtol 1e-4, atol 0.5,
+iterations ±1), mass conserved and B1 launched as the layout says; the
+sharded builds and sweeps are timed beside the single-device sweeps and
+the exchanges alone; ``ntt_sharded`` at 2^20 must equal ``ntt`` bit for
+bit. Its times are a virtual mesh's on one card: no scaling claim.
+Phase ``sharded_checks`` runs the rest of the slice beside the
+host-bound phases (in the MSM child's process, below):
+``sparse-scores --checkpoint-dir`` through the CLI on the GPU mesh
+``make_mesh()`` gives (a 100K-peer edge list, stopped after one chunk
+and resumed, equal to an uninterrupted run), ``sharded_recover_batch``
+on the 65,536 ingest lanes bit-identical to ``recover_batch``,
+``ShardedRound3`` on a k = 16 ``DeviceProver`` bit-identical in its ext
+chunks, quotient chunks and 4n inverse, and ``dryrun_multichip`` on
+both meshes.
+
 The second path is batched attestation ingest on the field kernels
 (``csrc/field.cu``: the Montgomery multiply that replaces the TPU's
 ``_mont_mul_kernel``, and the modular add and subtract). The script
@@ -161,14 +182,15 @@ host prove and verifying; then the profile library's pool workloads
 (``proofs``, ``sharded``, ``fabric``) run at their defaults, each with
 its own byte-parity checks.
 
-The phases that time a kernel (through ``prove``'s NTT, ``DeviceProver``
-and lockstep pieces, and ``msm``) run first and alone on the card. Two
+The phases that time a kernel (through ``sharded``, ``prove``'s NTT,
+``DeviceProver`` and lockstep pieces, and ``msm``) run first and alone
+on the card. Two
 processes of their own then run beside the phases from ``scenario`` to
 ``fabric``, which time no kernel: phase ``threshold``, host-bound for
 most of its wall (``chip_smoke.py --threshold-child``), and phases
-``msm_commits`` and ``workloads``, paced by the host's launches
-(``--msm-child``); each child's launch counts are its own, and the run
-joins both last.
+``msm_commits``, ``workloads`` and ``sharded_checks``, paced by the
+host's launches (``--msm-child``); each child's launch counts are its
+own, and the run joins both last.
 
 Every phase prints one JSON line, with the run's elapsed seconds
 (``t_s``) and a progress line on stderr; any failed check exits
@@ -223,6 +245,13 @@ LADDER_LOCAL = 20              # revisions of the localized window
 LADDER_FLOOD = 5000            # revisions of the flooded window
 LADDER_ERROR_BUDGET = 1e-3     # relative L1 (the sublinear workload's)
 TOPICS = 5                     # topic vectors per batch (the reference test)
+# phase sharded: the device mesh on SHARDED_D repeats of the card (the
+# reference's virtual mesh is 8 CPU devices)
+SHARDED_D = 8
+SHARDED_FIXED_SWEEPS = 20      # the reference-parity fixed run
+SHARDED_CHECKPOINT_EVERY = 10  # sweeps per chunk of the CLI's runs
+SHARDED_NTT_K = 20
+SHARDED_R3_K = 16              # phase prove's DeviceProver; k = 20 is cut
 
 # 32-bit integer multiply-adds per clock per SM on compute capability 9.0
 # (CUDA C++ Programming Guide, arithmetic instruction throughput table)
@@ -1374,6 +1403,529 @@ def phase_topics(device, graph) -> dict:
     check(launches == int(max(iters)) * stages,
           f"lane_perm launched {launches} times for the topic batch, "
           f"expected {int(max(iters))} sweeps × {stages}")
+    return rec
+
+
+# --- phase sharded: the device mesh (parallel/) -------------------------------
+
+_COUNTED = ("lane_perm", "mont_mul", "add_mod", "sub_mod")
+
+
+def _launch_counts() -> dict:
+    from protocol_tpu_torch.ops import kernels
+    from protocol_tpu_torch.ops.kernels import field_kernel as fk
+
+    return {"lane_perm": kernels.LAUNCHES["lane_perm"],
+            **{k: fk.LAUNCHES[k] for k in _COUNTED[1:]}}
+
+
+class _Tally:
+    """The kernels' launches inside ``count()`` blocks only (the sharded
+    calls, not the single-device runs they are compared with), summed
+    over the phase; each block's own counts land in the dict it yields."""
+
+    def __init__(self):
+        self.total = dict.fromkeys(_COUNTED, 0)
+
+    @contextlib.contextmanager
+    def count(self):
+        before = _launch_counts()
+        got: dict = {}
+        yield got
+        after = _launch_counts()
+        for k in _COUNTED:
+            got[k] = after[k] - before[k]
+            self.total[k] += got[k]
+
+
+def _rel_conservation(scores, n_valid: int) -> float:
+    import numpy as np
+
+    total = n_valid * 1000.0
+    return abs(float(np.sum(scores, dtype=np.float64)) - total) / total
+
+
+def _route_exchange(xs: list, e: int, mesh) -> list:
+    """The exchanges of one sharded route (``sharded_apply_route``)
+    without its B1 stages: the level-0 shuffle with its local transpose,
+    then the inverse."""
+    from protocol_tpu_torch.parallel.mesh import all_to_all
+
+    d = mesh.size
+    m = 1 << (e - 7)
+    ys = all_to_all([x.view(-1, 128) for x in xs], mesh, split_dim=1,
+                    concat_dim=0)
+    ys = [y.t().reshape(-1) for y in ys]
+    ys = [y.view(128 // d, m).t() for y in ys]
+    return all_to_all(ys, mesh, split_dim=0, concat_dim=1)
+
+
+def _sharded_converges(device, graph, mesh, tally) -> dict:
+    """The converge graph sharded by rows (gather) and by the Clos route
+    (device-major plan) over ``mesh``: SHARDED_FIXED_SWEEPS fixed sweeps
+    and an adaptive run at α = ALPHA in float32, each held against the
+    single-device gather or routed converge of the same graph within the
+    reference's float32 bound (rtol 1e-4, atol 0.5; iterations ±1), mass
+    conserved, B1 launched ``lane_perm_launches_per_sweep`` times a
+    routed sweep. Timed: each sharded build, and the sweeps by graph
+    replay beside the single-device ones and the exchanges alone."""
+    import numpy as np
+    import torch
+
+    from protocol_tpu_torch.graph import build_operator
+    from protocol_tpu_torch.ops.converge import (
+        converge_sparse_adaptive,
+        converge_sparse_fixed,
+        operator_arrays,
+        spmv,
+    )
+    from protocol_tpu_torch.ops.routed import (
+        converge_routed_adaptive,
+        converge_routed_fixed,
+        routed_arrays,
+        spmv_routed,
+    )
+    from protocol_tpu_torch.parallel import (
+        build_sharded_operator,
+        build_sharded_routed_operator,
+        place_sharded,
+        place_sharded_routed,
+        sharded_converge_adaptive,
+        sharded_converge_fixed,
+        sharded_routed_converge_adaptive,
+        sharded_routed_converge_fixed,
+    )
+    from protocol_tpu_torch.parallel.converge import _sweep
+    from protocol_tpu_torch.parallel.mesh import all_gather, shard
+    from protocol_tpu_torch.parallel.routed import (
+        lane_perm_launches_per_sweep,
+        sharded_routed_spmv,
+    )
+
+    n, src, dst, val, valid, op = graph
+    f32 = torch.float32
+    sweeps = SHARDED_FIXED_SWEEPS
+
+    def close(a, b):
+        return (bool(np.allclose(a, b, rtol=1e-4, atol=0.5)),
+                float(np.max(np.abs(np.asarray(a, np.float64) - b))))
+
+    # --- the single-device runs they are held against
+    gop = build_operator(n, src, dst, val, valid)
+    garrs = operator_arrays(gop, dtype=f32, alpha=ALPHA, device=device)
+    gs0 = torch.from_numpy(gop.valid * 1000.0).to(device, f32)
+    g_fixed = converge_sparse_fixed(garrs, gs0, sweeps).cpu().numpy()
+    g_ad, g_iters, _ = converge_sparse_adaptive(garrs, gs0, TOL,
+                                                MAX_ITERATIONS)
+    g_ad = g_ad.cpu().numpy()
+    gather_sweep_ms = graph_ms(lambda i: spmv(garrs, gs0), 10)["ms"]
+    del garrs
+    rarrs, rstatic = routed_arrays(op, dtype=f32, alpha=ALPHA, device=device)
+    rs0 = torch.from_numpy(op.initial_scores(1000.0)).to(device)
+    r_fixed = op.scores_for_nodes(
+        converge_routed_fixed(rarrs, rstatic, rs0, sweeps).cpu().numpy())
+    r_ad, r_iters, _ = converge_routed_adaptive(rarrs, rstatic, rs0, TOL,
+                                                MAX_ITERATIONS)
+    r_ad = op.scores_for_nodes(r_ad.cpu().numpy())
+    routed_sweep_ms = graph_ms(lambda i: spmv_routed(rarrs, rstatic, rs0),
+                               10)["ms"]
+    del rarrs
+    torch.cuda.empty_cache()
+
+    # --- row-sharded gather
+    t0 = time.perf_counter()
+    sop = build_sharded_operator(n, src, dst, val, valid,
+                                 num_shards=mesh.size)
+    gather_build_s = time.perf_counter() - t0
+    placed = place_sharded(sop, mesh, f32, ALPHA)
+    s0 = sop.initial_scores(1000.0, dtype=f32)
+    with tally.count():
+        t0 = time.perf_counter()
+        fixed = sharded_converge_fixed((sop, placed), s0, sweeps, mesh,
+                                       alpha=ALPHA).cpu().numpy()[:n]
+        gather_fixed_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ad, ad_iters, ad_delta = sharded_converge_adaptive(
+            (sop, placed), s0, mesh, tol=TOL, max_iterations=MAX_ITERATIONS,
+            alpha=ALPHA)
+        gather_adaptive_s = time.perf_counter() - t0
+    ad = ad.cpu().numpy()[:n]
+    blocks = shard(s0.to(device), mesh)
+    nv = float(sop.n_valid)
+    gather = {
+        "build_s": gather_build_s, "fixed_s": gather_fixed_s,
+        "adaptive_s": gather_adaptive_s, "iterations": ad_iters,
+        "delta": ad_delta, "single_iterations": g_iters,
+        "sweep_ms": graph_ms(lambda i: _sweep(placed, blocks, nv, mesh),
+                             10)["ms"],
+        "sweep_host_paced_ms": cuda_ms(lambda: _sweep(placed, blocks, nv,
+                                                      mesh), 10),
+        "exchange_ms": graph_ms(lambda i: all_gather(blocks, mesh),
+                                10)["ms"],
+        "single_sweep_ms": gather_sweep_ms,
+        "fixed_close": close(fixed, g_fixed[:n]),
+        "adaptive_close": close(ad, g_ad[:n]),
+        "conservation_rel_err": _rel_conservation(ad, sop.n_valid)}
+    gather["exchange_share"] = gather["exchange_ms"] / gather["sweep_ms"]
+    del placed, blocks
+    torch.cuda.empty_cache()
+
+    # --- Clos-routed, device-major
+    t0 = time.perf_counter()
+    rop = build_sharded_routed_operator(n, src, dst, val, valid,
+                                        num_shards=mesh.size)
+    routed_build_s = time.perf_counter() - t0
+    per_sweep = lane_perm_launches_per_sweep(rop)
+    placed = place_sharded_routed(rop, mesh, f32, ALPHA)
+    s0 = torch.from_numpy(rop.initial_scores(1000.0))
+    with tally.count() as fixed_launches:
+        t0 = time.perf_counter()
+        fixed = rop.scores_for_nodes(sharded_routed_converge_fixed(
+            (rop, placed), s0, sweeps, mesh))
+        routed_fixed_s = time.perf_counter() - t0
+    with tally.count() as ad_launches:
+        t0 = time.perf_counter()
+        ad, ad_iters, ad_delta = sharded_routed_converge_adaptive(
+            (rop, placed), s0, mesh, tol=TOL, max_iterations=MAX_ITERATIONS)
+        routed_adaptive_s = time.perf_counter() - t0
+    ad = rop.scores_for_nodes(ad)
+    blocks = shard(s0.to(device), mesh)
+    e_loc = (1 << rop.edge_e) // mesh.size
+    z_loc = (1 << rop.state_e) // mesh.size
+    xe = [torch.randn(e_loc, device=device) for _ in range(mesh.size)]
+    xz = [torch.randn(z_loc, device=device) for _ in range(mesh.size)]
+    routed = {
+        "build_s": routed_build_s, "fixed_s": routed_fixed_s,
+        "adaptive_s": routed_adaptive_s, "iterations": ad_iters,
+        "delta": ad_delta, "single_iterations": r_iters,
+        "edge_e": rop.edge_e, "edge_bits": list(rop.edge_bits),
+        "state_e": rop.state_e, "state_bits": list(rop.state_bits),
+        "lane_perm_per_sweep": per_sweep,
+        "lane_perm_launches": {"fixed": fixed_launches["lane_perm"],
+                               "adaptive": ad_launches["lane_perm"]},
+        "sweep_ms": graph_ms(lambda i: sharded_routed_spmv(
+            placed, blocks, rop, mesh), 5)["ms"],
+        "sweep_host_paced_ms": cuda_ms(lambda: sharded_routed_spmv(
+            placed, blocks, rop, mesh), 5),
+        "exchange_ms": graph_ms(lambda i: (
+            _route_exchange(xe, rop.edge_e, mesh),
+            _route_exchange(xz, rop.state_e, mesh)), 5)["ms"],
+        "single_sweep_ms": routed_sweep_ms,
+        "fixed_close": close(fixed, r_fixed),
+        "adaptive_close": close(ad, r_ad),
+        "conservation_rel_err": _rel_conservation(ad, rop.n_valid)}
+    routed["exchange_share"] = routed["exchange_ms"] / routed["sweep_ms"]
+    del placed, blocks, xe, xz
+    torch.cuda.empty_cache()
+
+    rec = {"shards": mesh.size, "peers": n, "sweeps": sweeps,
+           "gather": gather, "routed": routed}
+    emit("sharded_converge", **rec)
+    for name, r in (("gather", gather), ("routed", routed)):
+        check(r["fixed_close"][0], f"sharded {name}: {sweeps} sweeps differ "
+              f"from the single-device run (max |diff| "
+              f"{r['fixed_close'][1]})")
+        check(r["adaptive_close"][0], f"sharded {name}: the adaptive run "
+              f"differs (max |diff| {r['adaptive_close'][1]})")
+        check(abs(r["iterations"] - r["single_iterations"]) <= 1,
+              f"sharded {name}: {r['iterations']} iterations against "
+              f"{r['single_iterations']}")
+        check(r["delta"] <= TOL, f"sharded {name} stopped at {r['delta']}")
+        check(r["conservation_rel_err"] < 1e-4,
+              f"sharded {name}: mass not conserved")
+    check(fixed_launches["lane_perm"] == sweeps * per_sweep,
+          f"sharded routed: B1 launched {fixed_launches['lane_perm']} times "
+          f"in {sweeps} sweeps, not {sweeps} × {per_sweep}")
+    check(ad_launches["lane_perm"] == ad_iters * per_sweep,
+          f"sharded routed: B1 launched {ad_launches['lane_perm']} times "
+          f"in {ad_iters} sweeps, not {ad_iters} × {per_sweep}")
+    return rec
+
+
+def _sharded_checkpoint_cli(tally) -> dict:
+    """``sparse-scores --checkpoint-dir`` on a CLI_PEERS-peer edge list
+    through the port's CLI (its mesh: every GPU), the operator cached
+    after the first build: one uninterrupted run, and a run stopped
+    after one chunk (``--max-iterations`` = one chunk, exit 1, not
+    converged) and resumed from its checkpoint; the resumed scores
+    within the reference's resume bound (rtol 1e-5, atol 1e-2) of the
+    uninterrupted ones, at the same iteration count."""
+    import numpy as np
+
+    from protocol_tpu_torch.graph import barabasi_albert_edges
+
+    n = CLI_PEERS
+    src, dst, val = barabasi_albert_edges(n, BA_M, seed=1)
+    every = SHARDED_CHECKPOINT_EVERY
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as d:
+        np.savetxt(Path(d) / "edges.csv",
+                   np.stack([src, dst, val.astype(np.int64)], axis=1),
+                   fmt="%d", delimiter=",")
+        base = ["--assets", d, "sparse-scores", "--edges", "edges.csv",
+                "--n", n, "--alpha", ALPHA, "--operator-cache", "opcache",
+                "--checkpoint-every", every]
+        runs = {}
+        for name, extra in (
+                ("uninterrupted", ["--checkpoint-dir", "ck_full", "--out",
+                                   "full.csv"]),
+                ("stopped", ["--checkpoint-dir", "ck", "--max-iterations",
+                             every, "--out", "stopped.csv"]),
+                ("resumed", ["--checkpoint-dir", "ck", "--out",
+                             "resumed.csv"])):
+            with tally.count() as launches:
+                t0 = time.perf_counter()
+                rc, out, err = _cli(base + extra)
+                wall = time.perf_counter() - t0
+            runs[name] = {"rc": rc, "wall_s": wall,
+                          "stdout": out.strip()[-200:],
+                          "stderr": err.strip()[-400:],
+                          "launches": launches}
+            check(rc == (1 if name == "stopped" else 0),
+                  f"sparse-scores --checkpoint-dir ({name}): {runs[name]}")
+        steps = sorted(p.name for p in (Path(d) / "ck").glob("step-*.npz"))
+        full = np.loadtxt(Path(d) / "full.csv", delimiter=",", skiprows=1)
+        resumed = np.loadtxt(Path(d) / "resumed.csv", delimiter=",",
+                             skiprows=1)
+    iters = {k: re.search(r"after (\d+) iterations", r["stdout"])
+             for k, r in runs.items()}
+    rec = {"peers": n, "edges": len(src), "checkpoint_every": every,
+           "runs": runs, "step_files": steps,
+           "max_abs_diff": float(np.max(np.abs(full[:, 1] - resumed[:, 1]))),
+           "close": bool(np.allclose(resumed[:, 1], full[:, 1], rtol=1e-5,
+                                     atol=1e-2))}
+    emit("sharded_checkpoint", **rec)
+    check("NOT converged" in runs["stopped"]["stdout"],
+          f"the run stopped after one chunk did not stop: {runs['stopped']}")
+    check(len(steps) >= 2, f"no checkpoints written: {steps}")
+    check(all(iters.values()) and iters["resumed"].group(1)
+          == iters["uninterrupted"].group(1),
+          "the resumed run's iterations differ from the uninterrupted run's")
+    check(rec["close"], f"resumed scores differ (max |diff| "
+          f"{rec['max_abs_diff']})")
+    check(all(r["launches"]["lane_perm"] > 0 for r in runs.values()),
+          "a checkpointed CLI run did not launch B1")
+    return rec
+
+
+def _sharded_ingest(device, mesh, tally) -> dict:
+    """``sharded_recover_batch`` over INGEST_ATTESTATIONS lanes of the
+    ingest phase's fixture (forged lanes included) against one
+    single-device ``recover_batch`` call on the same lanes: keys and
+    mask equal, every honest lane its signer's key."""
+    import numpy as np
+    import torch
+
+    from protocol_tpu_torch.ops import secp_batch as sb
+    from protocol_tpu_torch.parallel.ingest import sharded_recover_batch
+
+    atts, signer, forged, _ = _ingest_fixture(random.Random(6))
+    hashes = [int(a.attestation.to_scalar().hash())
+              for a in atts[:INGEST_DISTINCT]]
+    msgs = [hashes[i % INGEST_DISTINCT] for i in range(len(atts))]
+    sigs = [a.signature.to_signature() for a in atts]
+    rs, ss, recs = ([s.r for s in sigs], [s.s for s in sigs],
+                    [s.rec_id for s in sigs])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = sb.recover_batch(rs, ss, recs, msgs, device=device)
+    single_s = time.perf_counter() - t0
+    with tally.count() as launches:
+        t0 = time.perf_counter()
+        got = sharded_recover_batch(rs, ss, recs, msgs, mesh)
+        sharded_s = time.perf_counter() - t0
+    honest = [i for i, k in enumerate(signer) if k >= 0]
+    keys_ok = all(got[2][i] for i in honest)
+    rec = {"lanes": len(atts), "shards": mesh.size,
+           "single_s": single_s, "sharded_s": sharded_s,
+           "keys_equal": got[0] == want[0] and got[1] == want[1],
+           "mask_equal": bool(np.array_equal(got[2], want[2])),
+           "honest_valid": keys_ok, "valid": int(np.sum(got[2])),
+           "forged": {k: len(v) for k, v in forged.items()},
+           "launches": launches}
+    emit("sharded_ingest", **rec)
+    check(rec["keys_equal"] and rec["mask_equal"],
+          "the sharded recovery differs from the single-device one")
+    check(keys_ok, "an honest lane came back invalid")
+    for kind in ("r_at_least_n", "r_does_not_lift"):
+        check(not any(got[2][i] for i in forged[kind]),
+              f"a forged lane ({kind}) came back valid")
+    return rec
+
+
+def _sharded_ntt(device, mesh, tally) -> dict:
+    """``ntt_sharded`` at 2^SHARDED_NTT_K equal to ``ntt`` bit for bit;
+    both timed by graph replay, and the sharded transform's
+    ``psum_scatter`` alone."""
+    import torch
+
+    from protocol_tpu_torch.ops import fieldops2 as f2
+    from protocol_tpu_torch.ops import ntt_tpu
+    from protocol_tpu_torch.parallel.mesh import psum_scatter
+    from protocol_tpu_torch.parallel.ntt import (
+        ShardedPlan,
+        column_blocks,
+        ntt_blocks,
+        ntt_sharded,
+    )
+
+    k = SHARDED_NTT_K
+    plan = ntt_tpu.NttPlan.get(k, device)
+    x = f2.upload_mont(_rand_fr_u64(1 << k, 2020), device)
+    want = ntt_tpu.ntt(x, plan)
+    with tally.count() as launches:
+        got = ntt_sharded(x, plan, mesh)
+    equal = bool(torch.equal(got, want))
+    del got, want
+    sp = ShardedPlan(plan, mesh)
+    blocks = column_blocks(x, plan.A, plan.B, mesh)
+    partials = [torch.zeros(2 * f2.L6 - 1, plan.A, plan.B, dtype=torch.int32,
+                            device=device) for _ in range(mesh.size)]
+    rec = {"k": k, "shards": mesh.size, "bit_exact": equal,
+           "ms": graph_ms(lambda i: ntt_tpu.ntt(x, plan), 2)["ms"],
+           "sharded_ms": graph_ms(lambda i: ntt_blocks(blocks, sp), 2)["ms"],
+           "psum_scatter_ms": graph_ms(lambda i: psum_scatter(
+               partials, mesh, scatter_dim=2), 2)["ms"],
+           "launches": launches}
+    rec["psum_scatter_share"] = rec["psum_scatter_ms"] / rec["sharded_ms"]
+    del sp, blocks, partials, x
+    torch.cuda.empty_cache()
+    emit("sharded_ntt", **rec)
+    check(equal, f"ntt_sharded at 2^{k} differs from ntt")
+    return rec
+
+
+def _sharded_round3(device, mesh, tally) -> dict:
+    """``ShardedRound3`` on a resident k = SHARDED_R3_K ``DeviceProver``
+    (seeded fixed and σ columns): every column's ext chunk on all four
+    cosets (two blinded), the four quotient chunks and the 4n inverse,
+    each equal to the ``DeviceProver``'s bit for bit; both pipelines'
+    walls."""
+    import numpy as np
+    import torch
+
+    from protocol_tpu_torch.parallel.prover import ShardedRound3
+    from protocol_tpu_torch.utils.fields import BN254_FR_MODULUS as P
+    from protocol_tpu_torch.zk import prover_tpu as ptpu
+    from protocol_tpu_torch.zk.plonk import _find_coset_shifts
+
+    k = SHARDED_R3_K
+    n = 1 << k
+    shift = _find_coset_shifts(4 * n, 2)[1]
+    t0 = time.perf_counter()
+    dp = ptpu.DeviceProver(k, shift,
+                           [_rand_fr_u64(n, 500 + i) for i in range(9)],
+                           [_rand_fr_u64(n, 600 + i) for i in range(6)],
+                           device=device)
+    init_s = time.perf_counter() - t0
+    cols = [ptpu.upload_mont(_rand_fr_u64(n, 700 + c), device)
+            for c in range(14)]  # 6 wires, z, m, φ, π, u1, u2, v1, v2
+    blinds = {6: [12345, 999, 31337], 8: [42, 4242]}  # z and φ blinded
+    rng = np.random.default_rng(23)
+    beta, gamma, beta_lk, alpha = [int(x) % P for x in
+                                   rng.integers(1, 2 ** 62, 4)]
+    ch = dp.challenge_planes(beta, gamma, beta_lk, alpha,
+                             _find_coset_shifts(n, 6))
+
+    def pipeline(ext, quotient, intt_ext, place):
+        c = [place(x) for x in cols]
+        t = []
+        ext_all = []
+        for j in range(4):
+            e = [ext(x, j, blinds.get(i)) for i, x in enumerate(c)]
+            ext_all.append(e)
+            t.append(quotient(j, e[:6], e[6], e[7], e[8], e[9], e[10:], ch))
+        return ext_all, t, intt_ext(list(t))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = pipeline(dp.ext_chunk, dp.quotient_chunk, dp.intt_ext,
+                    lambda x: x)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    sp = ShardedRound3(dp, mesh)
+    with tally.count() as launches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = pipeline(sp.ext_chunk, sp.quotient_chunk, sp.intt_ext,
+                       sp.shard)
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t0
+    ext_equal = all(torch.equal(sp.gather(g), w)
+                    for ge, we in zip(got[0], want[0])
+                    for g, w in zip(ge, we))
+    quot_equal = all(torch.equal(sp.gather(g), w)
+                     for g, w in zip(got[1], want[1]))
+    intt_equal = all(torch.equal(sp.gather(g), w)
+                     for g, w in zip(got[2], want[2]))
+    rec = {"k": k, "shards": mesh.size, "A": dp.A, "B": dp.B,
+           "dp_init_s": init_s, "single_s": single_s,
+           "sharded_s": sharded_s, "ext_chunk_equal": ext_equal,
+           "quotient_chunk_equal": quot_equal, "intt_ext_equal": intt_equal,
+           "launches": launches}
+    del dp, sp, got, want, cols
+    torch.cuda.empty_cache()
+    emit("sharded_round3", **rec)
+    check(ext_equal, "a sharded ext chunk differs from the DeviceProver's")
+    check(quot_equal, "a sharded quotient chunk differs")
+    check(intt_equal, "the sharded intt_ext differs")
+    return rec
+
+
+def phase_sharded(device, graph) -> dict:
+    """The device mesh (``parallel/``) on a virtual mesh of SHARDED_D
+    repeats of the card, every shard running its own kernels: the
+    converge graph row-sharded and Clos-routed, and the sharded NTT,
+    alone on the card (their times are a virtual mesh's on one card and
+    make no claim about scaling). The rest of the slice's checks run
+    beside the host-bound phases (``phase_sharded_checks``). Returns the
+    phase's record, the sharded calls' launches under ``launches``."""
+    from protocol_tpu_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh(devices=[device] * SHARDED_D)
+    tally = _Tally()
+    rec = {"converge": _sharded_converges(device, graph, mesh, tally),
+           "ntt": _sharded_ntt(device, mesh, tally),
+           "launches": tally.total, "wall_s": time.perf_counter() - t_phase}
+    emit("sharded", shards=mesh.size, launches=tally.total,
+         wall_s=rec["wall_s"])
+    check(tally.total["lane_perm"] > 0 and tally.total["mont_mul"] > 0,
+          f"sharded: B1 or B2 was not launched: {tally.total}")
+    return rec
+
+
+def phase_sharded_checks(device) -> dict:
+    """Beside the host-bound phases: the CLI's checkpointed mode on the
+    GPU mesh ``make_mesh()`` gives, the lane-sharded ingest and round 3
+    on the virtual mesh, and ``entry.dryrun_multichip`` on both. Returns
+    the record, the sharded calls' launches under ``launches``."""
+    from protocol_tpu_torch.entry import dryrun_multichip
+    from protocol_tpu_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh(devices=[device] * SHARDED_D)
+    gpu_mesh = make_mesh()
+    tally = _Tally()
+    rec = {"gpu_mesh_size": gpu_mesh.size,
+           "gpu_mesh": [str(d) for d in gpu_mesh.devices],
+           "checkpoint": _sharded_checkpoint_cli(tally),
+           "ingest": _sharded_ingest(device, mesh, tally),
+           "round3": _sharded_round3(device, mesh, tally)}
+    dry = {}
+    for name, args in (("virtual", (SHARDED_D, [device] * SHARDED_D)),
+                       ("gpu", (gpu_mesh.size, None))):
+        with tally.count() as launches:
+            t0 = time.perf_counter()
+            dryrun_multichip(*args)
+            dry[name] = {"devices": args[0], "wall_s":
+                         time.perf_counter() - t0, "launches": launches}
+    rec["dryrun"] = dry
+    rec["launches"] = tally.total
+    rec["wall_s"] = time.perf_counter() - t_phase
+    emit("sharded_checks", gpu_mesh_size=gpu_mesh.size, dryrun=dry,
+         launches=tally.total, wall_s=rec["wall_s"])
+    for k, v in tally.total.items():
+        check(v > 0, f"sharded checks: {k} was not launched")
     return rec
 
 
@@ -3997,12 +4549,13 @@ def _field_record(name: str, launches: int, err: int, times: dict) -> dict:
 
 
 THRESHOLD_CHILD = "--threshold-child"  # internal: phase threshold alone
-MSM_CHILD = "--msm-child"  # internal: phases msm_commits and workloads
+MSM_CHILD = "--msm-child"  # internal: msm_commits, workloads, sharded_checks
 
 
 def _msm_child_phases(device) -> dict:
     return {"msm_commits": phase_msm_commits(device),
-            "workloads": phase_workloads()}
+            "workloads": phase_workloads(),
+            "sharded_checks": phase_sharded_checks(device)}
 
 
 # the phases each child runs, by its flag: (name, phases(device) -> record)
@@ -4095,6 +4648,7 @@ def main() -> int:
         launches, graph = phase_main_path(device)
         delta = phase_delta(device, graph)
         topics = phase_topics(device, graph)
+        sharded = phase_sharded(device, graph)
         del graph
         field_err = phase_field_kernels_vs_plain(device)
         field_times = phase_field_times(device)
@@ -4102,8 +4656,9 @@ def main() -> int:
         pieces = phase_prove_pieces(device)
         msm = phase_msm(device)
         # the Threshold proofs (host circuit builds and commits, most of
-        # a run's wall) and the device MSM's commits (paced by the host's
-        # launches) beside the rest, which times no kernel
+        # a run's wall), and the device MSM's commits and the sharded
+        # checks (paced by the host's launches) beside the rest, which
+        # times no kernel
         for flag in CHILDREN:
             children[flag] = _start_child(flag)
         t_child = time.perf_counter()
@@ -4121,6 +4676,10 @@ def main() -> int:
         emit("msm_commits", **msm_commits, beside_s=t_rest,
              joined_after_s=time.perf_counter() - t_child)
         emit("workloads", **beside["workloads"])
+        checks = beside["sharded_checks"]
+        emit("sharded_checks", **checks)
+        sharded_launches = {k: v + checks["launches"][k]
+                            for k, v in sharded["launches"].items()}
         threshold = _join_child(*children[THRESHOLD_CHILD],
                                 THRESHOLD_CHILD)
         emit("threshold", **threshold, beside_s=t_rest,
@@ -4151,7 +4710,8 @@ def main() -> int:
                              "topics": topics["lane_perm_launches"],
                              "scenario": scenario_launches,
                              "serve": serve_launches["lane_perm"],
-                             "follower": follower_launches["lane_perm"]},
+                             "follower": follower_launches["lane_perm"],
+                             "sharded": sharded_launches["lane_perm"]},
         "batched": topics["batched_stage"],
     }] + [dict(_field_record(k, field_launches[k], field_err[k],
                              field_times),
@@ -4165,6 +4725,7 @@ def main() -> int:
                    "fabric": fabric["launches"][k],
                    "msm": msm["launches"][k],
                    "msm_commits": msm_commits["launches"][k],
+                   "sharded": sharded_launches[k],
                    **({"field_converge": converge_launches}
                       if k == "mont_mul" else {})})
           for k in ("mont_mul", "add_mod", "sub_mod")]}), flush=True)

@@ -18,7 +18,11 @@ so each counterpart is easy to find; nothing here imports ``jax`` or
                  facade) and the batched ingest on the card
 - ``scenarios`` — the adversarial harness: seeded attack topologies,
                  robustness metrics, ``run_scenario``
+- ``parallel`` — the device mesh: row-sharded and Clos-routed converges,
+                 the checkpointed loop, lane-sharded ingest, the
+                 sharded NTT and round 3 of the prover
 - ``entry``    — the flagship step (20 routed sweeps on a 4096-peer graph)
+                 and the multi-device dry run
 - ``cli``      — ``python -m protocol_tpu_torch.cli``: ``attest``,
                  ``attestations``, ``deploy``, ``show``, ``update``,
                  ``bandada``, ``local-scores``, ``scores``, ``scenario``,

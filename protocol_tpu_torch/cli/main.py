@@ -18,8 +18,9 @@
   ``list``, ``run`` (``--device``), ``report``.
 - ``sparse-scores`` converges a raw edge-list trust graph: the
   reference CLI's verb, with the same arguments, output CSV and exit
-  codes, plus ``--device``. The sharded ``--checkpoint-dir`` mode is not
-  ported yet and is refused.
+  codes, plus ``--device``. ``--checkpoint-dir`` runs the sharded
+  checkpointed converge (``parallel/``) over a mesh of every GPU, or of
+  the one device ``--device`` names.
 - ``profile`` runs a workload under the instrument layer and prints the
   per-stage report (``cli/profilecmd.py``): the reference's arguments
   plus ``--device``; ``--workload refresh`` runs locally, ``daemon``
@@ -435,8 +436,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-iterations", type=int, default=500)
     p.add_argument("--initial-score", type=float, default=1000.0)
     p.add_argument("--checkpoint-dir",
-                   help="sharded checkpointed mode (not available in the "
-                        "torch port yet)")
+                   help="sharded checkpointed mode: converge over a mesh "
+                        "of every GPU (or the one --device), saving the "
+                        "scores every --checkpoint-every sweeps here and "
+                        "resuming from the newest")
     p.add_argument("--checkpoint-every", type=int, default=25)
     p.add_argument("--engine", choices=["auto", "routed", "gather"],
                    default="auto",
@@ -517,29 +520,26 @@ def _read_edges(path: Path, n: int):
     return src, dst, val
 
 
-def _cached_routed_operator(args, assets: Path, src, dst, val, valid):
+def _cached_operator(args, assets: Path, kind: str, num_shards: int, src,
+                     dst, val, load, build):
     """Load the compiled operator from ``--operator-cache``, else build
-    (and store) it. The key is the reference CLI's, so a cache written
-    by either package serves both."""
-    from ..ops.routed import RoutedOperator, build_routed_operator
-
-    def build():
-        return build_routed_operator(args.n, src, dst, val, valid)
-
+    (and store) it. The key is the reference CLI's (the edge-list digest
+    and the build geometry), so a cache written by either package serves
+    both; an unreadable entry is rebuilt and overwritten."""
     if not args.operator_cache:
         return build()
     h = hashlib.sha256()
-    h.update(f"routed:v1:n={args.n}:D=1".encode())
+    h.update(f"{kind}:v1:n={args.n}:D={num_shards}".encode())
     for a in (src, dst, val):
         h.update(np.ascontiguousarray(a).tobytes())
     cache_dir = Path(args.operator_cache)
     if not cache_dir.is_absolute():
         cache_dir = assets / cache_dir
     cache_dir.mkdir(parents=True, exist_ok=True)
-    path = cache_dir / f"routed_{h.hexdigest()[:24]}.npz"
+    path = cache_dir / f"{kind}_{h.hexdigest()[:24]}.npz"
     if path.exists():
         try:
-            return RoutedOperator.load(path)
+            return load(path)
         except (OSError, ValueError, KeyError) as e:
             print(f"warning: ignoring unreadable operator cache {path}: {e}",
                   file=sys.stderr)
@@ -548,33 +548,102 @@ def _cached_routed_operator(args, assets: Path, src, dst, val, valid):
     return op
 
 
+def _sparse_scores_checkpointed(args, assets: Path, src, dst, val):
+    """``--checkpoint-dir``: the sharded adaptive converge in chunks of
+    ``--checkpoint-every`` sweeps, resumed from the newest checkpoint
+    there. The mesh is every GPU, or the one device ``--device`` names;
+    the engine rule, the routed operator cache and the errors are the
+    reference CLI's."""
+    import torch
+
+    from .. import native
+    from ..parallel import (
+        build_sharded_operator,
+        build_sharded_routed_operator,
+        make_mesh,
+        sharded_converge_checkpointed,
+    )
+    from ..parallel.routed import ShardedRoutedOperator
+    from ..utils import trace
+    from ..utils.checkpoint import CheckpointManager
+
+    ck_dir = Path(args.checkpoint_dir)
+    if not ck_dir.is_absolute():
+        ck_dir = assets / ck_dir
+    device = cli_device(args.device)  # no card: the error naming --device
+    mesh = make_mesh() if args.device is None else make_mesh(
+        devices=[device])
+    n_dev = mesh.size
+    engine = args.engine
+    if engine == "auto":
+        engine = ("routed" if args.n >= 100_000 and native.available()
+                  and 128 % n_dev == 0 else "gather")
+    if engine == "routed" and 128 % n_dev != 0:
+        raise EigenError(
+            "validation_error",
+            f"routed engine needs a device count dividing 128, "
+            f"have {n_dev}")
+    if engine == "routed":
+        sop = _cached_operator(
+            args, assets, "sharded_routed", n_dev, src, dst, val,
+            lambda p: ShardedRoutedOperator.load(p, num_shards=n_dev),
+            lambda: build_sharded_routed_operator(args.n, src, dst, val,
+                                                  num_shards=n_dev))
+        s0 = torch.from_numpy(sop.initial_scores(args.initial_score,
+                                                 dtype=np.float32))
+    else:
+        sop = build_sharded_operator(args.n, src, dst, val,
+                                     num_shards=n_dev)
+        s0 = sop.initial_scores(args.initial_score, dtype=torch.float32)
+    try:
+        with trace.span("cli.sparse_scores", mode="sharded", n=args.n,
+                        engine=engine):
+            scores, iters, delta = sharded_converge_checkpointed(
+                sop, s0, mesh, CheckpointManager(str(ck_dir)),
+                tol=args.tol, max_iterations=args.max_iterations,
+                alpha=args.alpha, checkpoint_every=args.checkpoint_every)
+    except ValueError as e:
+        # bad checkpoint_every / stale-checkpoint mismatch on resume
+        raise EigenError("validation_error", str(e)) from e
+    if engine == "routed":
+        scores = sop.scores_for_nodes(scores)
+    else:
+        scores = scores.cpu().numpy()[: args.n]
+    return scores, iters, delta
+
+
 def handle_sparse_scores(args, files, config) -> int:
     from .. import native
     from ..backend import TorchRoutedBackend, TorchSparseBackend
 
     assets = files.assets
-    if args.checkpoint_dir:
-        raise CliError("--checkpoint-dir (sharded checkpointed converge) is "
-                       "not available in the torch port yet")
     edges_path = Path(args.edges)
     if not edges_path.is_absolute():
         edges_path = assets / edges_path
     src, dst, val = _read_edges(edges_path, args.n)
 
-    engine = args.engine
-    if engine == "auto":
-        engine = ("routed" if args.n >= 100_000 and native.available()
-                  else "gather")
-    backend = (TorchRoutedBackend if engine == "routed"
-               else TorchSparseBackend)(device=cli_device(args.device))
-    valid = np.ones(args.n, dtype=bool)
-    extra = {}
-    if engine == "routed":
-        extra["operator"] = _cached_routed_operator(args, assets, src, dst,
-                                                    val, valid)
-    scores, iters, delta = backend.converge_edges(
-        args.n, src, dst, val, valid, args.initial_score,
-        args.max_iterations, tol=args.tol, alpha=args.alpha, **extra)
+    if args.checkpoint_dir:
+        scores, iters, delta = _sparse_scores_checkpointed(args, assets, src,
+                                                           dst, val)
+    else:
+        from ..ops.routed import RoutedOperator, build_routed_operator
+
+        engine = args.engine
+        if engine == "auto":
+            engine = ("routed" if args.n >= 100_000 and native.available()
+                      else "gather")
+        backend = (TorchRoutedBackend if engine == "routed"
+                   else TorchSparseBackend)(device=cli_device(args.device))
+        valid = np.ones(args.n, dtype=bool)
+        extra = {}
+        if engine == "routed":
+            extra["operator"] = _cached_operator(
+                args, assets, "routed", 1, src, dst, val,
+                RoutedOperator.load,
+                lambda: build_routed_operator(args.n, src, dst, val, valid))
+        scores, iters, delta = backend.converge_edges(
+            args.n, src, dst, val, valid, args.initial_score,
+            args.max_iterations, tol=args.tol, alpha=args.alpha, **extra)
 
     out_path = Path(args.out)
     if not out_path.is_absolute():

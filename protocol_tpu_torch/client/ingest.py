@@ -63,7 +63,8 @@ def _ingest_chunk() -> int:
     return int(os.environ.get("PTPU_INGEST_CHUNK", str(1 << 15)))
 
 
-def hash_recover_pipeline(row_chunks, sig_chunks, device=None):
+def hash_recover_pipeline(row_chunks, sig_chunks, device=None, _prep=None,
+                          _glv=None):
     """Software-pipelined hash + recovery over pre-chunked inputs,
     yielding ``(msgs, (xs, ys, valid))`` per chunk in order.
 
@@ -74,7 +75,8 @@ def hash_recover_pipeline(row_chunks, sig_chunks, device=None):
     to the serial hash_batch → recover_batch sequence (same kernels,
     same order within a chunk). ``sig_chunks`` entries are
     ``(rs, ss, rec_ids)`` lists; ``row_chunks`` entries are hasher input
-    rows."""
+    rows. ``_prep``/``_glv`` replace the recovery's device stages
+    (``ops.secp_batch.recover_submit``/``recover_midstage``)."""
     from ..ops import secp_batch as sb
     from ..ops.poseidon_batch import get_poseidon_batch
 
@@ -91,13 +93,13 @@ def hash_recover_pipeline(row_chunks, sig_chunks, device=None):
     for i in range(len(row_chunks)):
         msgs = pb.hash_finalize(hh)
         rs, ss, recs = sig_chunks[i]
-        sub = sb.recover_submit(rs, ss, recs, msgs, device=dev)
+        sub = sb.recover_submit(rs, ss, recs, msgs, device=dev, _prep=_prep)
         if i + 1 < len(row_chunks):
             hh = pb.hash_submit(row_chunks[i + 1])
         if mid is not None:
             yield pending_msgs, sb.recover_finalize(mid)
         pending_msgs = msgs
-        mid = sb.recover_midstage(sub)
+        mid = sb.recover_midstage(sub, _glv=_glv)
     yield pending_msgs, sb.recover_finalize(mid)
 
 

@@ -233,16 +233,23 @@ def dangling_and_damping(arrs: dict, s: torch.Tensor, base: torch.Tensor
     return (1.0 - alpha) * propagated + alpha * arrs["pretrust"] * total
 
 
-def spmv(arrs: dict, s: torch.Tensor) -> torch.Tensor:
-    """One application of the normalized trust operator (gather path):
-    per bucket gather source scores, weight, reduce along the width;
-    concatenate (plus a zero slot for in-degree-0 rows) and restore row
-    order."""
+def spmv_base(arrs: dict, s: torch.Tensor) -> torch.Tensor:
+    """The propagated scores of the gather path, before the sweep's
+    tail: per bucket gather source scores, weight, reduce along the
+    width; concatenate (plus a zero slot for in-degree-0 rows) and
+    restore row order. ``s`` holds every source row the buckets index
+    (the sharded sweep passes the all-gathered vector, and gets its own
+    rows back)."""
     parts = [(val * s[..., idx]).sum(dim=-1)
              for idx, val in zip(arrs["bucket_idx"], arrs["bucket_val"])]
     parts.append(s.new_zeros(s.shape[:-1] + (1,)))
-    base = torch.cat(parts, dim=-1)[..., arrs["row_pos"]]
-    return dangling_and_damping(arrs, s, base)
+    return torch.cat(parts, dim=-1)[..., arrs["row_pos"]]
+
+
+def spmv(arrs: dict, s: torch.Tensor) -> torch.Tensor:
+    """One application of the normalized trust operator (gather path):
+    :func:`spmv_base`, then the dangling correction and damping."""
+    return dangling_and_damping(arrs, s, spmv_base(arrs, s))
 
 
 def spmv_semiring(arrs: dict, s: torch.Tensor, sr: Semiring) -> torch.Tensor:

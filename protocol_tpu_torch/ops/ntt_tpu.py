@@ -72,19 +72,29 @@ def stage_matmul(lhs: torch.Tensor, rhs_t: torch.Tensor) -> torch.Tensor:
         return stage_matmul_plain(lhs, rhs_t)
     if lhs.device.type != "cuda":
         raise ValueError(f"stage_matmul: unsupported device {lhs.device}")
+    # the int8 GEMM takes a contracted length and an output width that
+    # are multiples of 8: zero columns add nothing to a sum (a shard of
+    # a sharded stage may contract fewer, parallel/ntt.py)
+    o = rhs_t.shape[0]
+    pad_c, pad_o = -lhs.shape[1] % 8, -o % 8
+    if pad_c or pad_o:
+        lhs = torch.nn.functional.pad(lhs, (0, pad_c))
+        rhs_t = torch.nn.functional.pad(rhs_t, (0, pad_c, 0, pad_o))
     out = torch._int_mm(lhs, rhs_t.t())
     LAUNCHES["stage_matmul"] += 1
-    return out
+    return out[:, :o].contiguous() if pad_o else out
 
 
-def field_stage(x: torch.Tensor, d0: int, d1: int, axis: int,
+def stage_accum(x: torch.Tensor, d0: int, d1: int, axis: int,
                 w_planes: torch.Tensor, matmul=stage_matmul
                 ) -> torch.Tensor:
-    """One stage of the four-step form: x is (d0·d1, 22) canonical rows
-    of a d0 × d1 matrix (row-major); contract its ``axis`` with the
-    plain matrix W (``w_planes``: (44, S, S) int8, W[out, in]).
-    Returns (S·d1, 22) rows in (out, i1) order for axis 0, (d0·S) rows
-    in (i0, out) order for axis 1."""
+    """The exact lazy accumulator of one stage: x is (d0·d1, 22)
+    canonical rows of a d0 × d1 matrix (row-major), contracted on its
+    ``axis`` with the plain matrix W (``w_planes``: (44, S, C) int8,
+    W[out, in], C the contracted length). Returns the (87, other, S)
+    int32 base-2^6 planes of the products, other = d1 for axis 0 and
+    d0 for axis 1. Accumulators over disjoint slices of the contracted
+    axis add up, as integers, to the whole one (``parallel/ntt.py``)."""
     x6 = f2.to_planes(x.reshape(d0, d1, L))          # (d0, d1, 44)
     if axis == 0:
         lhs = x6.permute(2, 1, 0).contiguous()        # (44, d1, d0)
@@ -98,6 +108,17 @@ def field_stage(x: torch.Tensor, d0: int, d1: int, axis: int,
                       device=x.device)
     for m in range(L6):
         acc[m : m + L6] += matmul(lhs, w_planes[m]).view(L6, other, s)
+    return acc
+
+
+def field_stage(x: torch.Tensor, d0: int, d1: int, axis: int,
+                w_planes: torch.Tensor, matmul=stage_matmul
+                ) -> torch.Tensor:
+    """One stage of the four-step form: :func:`stage_accum` with the
+    square (44, S, S) W, folded to canonical rows. Returns (S·d1, 22)
+    rows in (out, i1) order for axis 0, (d0·S) rows in (i0, out) order
+    for axis 1."""
+    acc = stage_accum(x, d0, d1, axis, w_planes, matmul)
     # acc[·, other, out]: axis 0 wants (out, other) rows, axis 1 (other, out)
     return f2.reduce_planes(acc, transpose=(axis == 0))
 

@@ -458,12 +458,14 @@ def _recover_prep(r_pl, rn_pl, m_pl, s_pl, want_odd):
             from_mont(CTX_N, u1), from_mont(CTX_N, u2))
 
 
-def recover_submit(rs, ss, rec_ids, msgs, device=None):
+def recover_submit(rs, ss, rec_ids, msgs, device=None, _prep=None):
     """Phase 1 of the split recovery: host limb prep + the
     challenge-independent ``_recover_prep`` launches (which return
     before the card is done). The split exists so a chunked caller can
     software-pipeline: while the card runs chunk i's ladder, the host
-    builds chunk i+1's limbs here (``recover_stream``)."""
+    builds chunk i+1's limbs here (``recover_stream``). ``_prep`` stands
+    in for ``_recover_prep`` with the same arguments and results (the
+    lane-sharded stage of ``parallel/ingest.py``)."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
     k = len(rs)
@@ -478,14 +480,15 @@ def recover_submit(rs, ss, rec_ids, msgs, device=None):
     range_ok = np.array([0 < r < SECP_N and s % SECP_N != 0
                          for r, s in zip(rs, ss)], dtype=bool)
     HOST_SECONDS["limb_prep"] += time.perf_counter() - t0
-    prep = _recover_prep(r_pl, rn_pl, m_pl, s_pl, want_odd)
+    prep = (_prep or _recover_prep)(r_pl, rn_pl, m_pl, s_pl, want_odd)
     return (k, prep, range_ok)
 
 
-def recover_midstage(handle):
+def recover_midstage(handle, _glv=None):
     """Phase 2: download u2 (waits for phase 1), host-side Babai GLV
     split, then the ladder's launches (which return before the card is
-    done)."""
+    done). ``_glv`` stands in for ``_recover_glv`` as ``_prep`` does for
+    the prep stage."""
     k, (r_m, y_sel, lift_ok, u1, u2), range_ok = handle
     u2_host = u2.cpu().numpy()
     t0 = time.perf_counter()
@@ -505,7 +508,8 @@ def recover_midstage(handle):
     e1t = torch.from_numpy(e1_neg).to(dev)
     e2t = torch.from_numpy(e2_neg).to(dev)
     HOST_SECONDS["glv_split"] += time.perf_counter() - t0
-    ax, ay, not_inf = _recover_glv(u1, s1l, s2l, e1t, e2t, r_m, y_sel)
+    ax, ay, not_inf = (_glv or _recover_glv)(u1, s1l, s2l, e1t, e2t, r_m,
+                                             y_sel)
     return (ax, ay, lift_ok, not_inf, range_ok)
 
 
@@ -521,7 +525,7 @@ def recover_finalize(handle):
     return xs, ys, ok
 
 
-def recover_stream(chunks, device=None):
+def recover_stream(chunks, device=None, _prep=None, _glv=None):
     """Pipelined recovery over an iterable of (rs, ss, rec_ids, msgs)
     chunks, yielding (xs, ys, valid) per chunk in order.
 
@@ -532,15 +536,16 @@ def recover_stream(chunks, device=None):
     dev = resolve_device(device)
     mid = None
     for ch in chunks:
-        sub = recover_submit(*ch, device=dev)
+        sub = recover_submit(*ch, device=dev, _prep=_prep)
         if mid is not None:
             yield recover_finalize(mid)
-        mid = recover_midstage(sub)
+        mid = recover_midstage(sub, _glv=_glv)
     if mid is not None:
         yield recover_finalize(mid)
 
 
-def recover_batch(rs, ss, rec_ids, msgs, device=None):
+def recover_batch(rs, ss, rec_ids, msgs, device=None, _prep=None,
+                  _glv=None):
     """Batched pubkey recovery: pk = r⁻¹·(s·R − m·G) with R lifted from
     (r, rec_id) — the ingest hot path (``ecdsa/native.rs:298-331``), on
     the GLV + fixed-base-window ladder (``_recover_glv``).
@@ -558,4 +563,5 @@ def recover_batch(rs, ss, rec_ids, msgs, device=None):
     Composition of recover_submit → recover_midstage → recover_finalize;
     chunked callers pipeline the phases via ``recover_stream``."""
     return recover_finalize(recover_midstage(
-        recover_submit(rs, ss, rec_ids, msgs, device=device)))
+        recover_submit(rs, ss, rec_ids, msgs, device=device, _prep=_prep),
+        _glv=_glv))

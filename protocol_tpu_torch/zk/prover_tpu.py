@@ -110,6 +110,12 @@ def _ext_chunk(coeffs, coset, xs_fs, zh_row, blind_rows, plan):
     """One (possibly blinded) FS-layout ext chunk: the coset-scaled
     coefficients' NTT plus zh_c·b(x) for blinds b (Montgomery rows)."""
     chunk = ntt_tpu.ntt(f2.mont_mul(coeffs, coset), plan)
+    return _blind(chunk, xs_fs, zh_row, blind_rows)
+
+
+def _blind(chunk, xs_fs, zh_row, blind_rows):
+    """``chunk`` + zh_c·b(x) on the coset points ``xs_fs`` (the same
+    rows as the chunk): the blinding of an ext chunk, pointwise."""
     if blind_rows is None:
         return chunk
     n = chunk.shape[0]
