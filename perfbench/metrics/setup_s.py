@@ -1,0 +1,5 @@
+"""Set-up time: process start to the first timed request (host clock)."""
+
+
+def read(run):
+    return run["setup_s"]
